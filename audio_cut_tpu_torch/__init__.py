@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of audio_cut_tpu.
+
+A second package beside the JAX reference: the same functions in PyTorch,
+with every Pallas kernel of the reference rewritten by hand for NVIDIA Hopper
+(``csrc/``). Entry points run on CUDA unless the caller passes ``device="cpu"``.
+This slice runs ``separate_and_segment(mode="vocal_separation")`` with the
+ConvTDF separator; ROADMAP.md lists what comes next.
+"""
+
+from audio_cut_tpu_torch.api import separate_and_segment
+
+__all__ = ["separate_and_segment"]

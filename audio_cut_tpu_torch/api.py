@@ -1,0 +1,260 @@
+"""Public library API: separate_and_segment -> SegmentManifest dict.
+
+Counterpart of ``audio_cut_tpu/api.py``, with the same signature and
+manifest schema. The ``device`` argument maps to
+``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
+device and no explicit ``"cpu"`` the call raises. This slice runs
+``mode="vocal_separation"``; the lyrics intent (``segments``/``alignment``)
+and the batch entry point come with the modes that use them (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import copy
+import hashlib
+import json
+from pathlib import Path
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+from audio_cut_tpu_torch.config import get_config_manager
+from audio_cut_tpu_torch.config.manager import get_nested, set_nested
+from audio_cut_tpu_torch.pipeline.qa import build_qa_report
+from audio_cut_tpu_torch.pipeline.splitter import SmartSplitter
+from audio_cut_tpu_torch.utils.device import resolve_device
+
+
+def _apply_call_overrides(mgr, *, device, strict_gpu, layout, overrides) -> None:
+    """Apply one call's device/layout/dotted overrides onto ``mgr.config``.
+    The caller snapshots and restores ``mgr.config`` around the call."""
+    if device:
+        set_nested(mgr.config, "gpu_pipeline.prefer_device", device)
+    if strict_gpu is not None:
+        set_nested(mgr.config, "gpu_pipeline.strict_gpu", bool(strict_gpu))
+    if layout:
+        ld = dict(layout)
+        set_nested(mgr.config, "segment_layout.enable", bool(ld.pop("enable", True)))
+        for k, v in ld.items():
+            set_nested(mgr.config, f"segment_layout.{k}", v)
+    for dotted, value in (overrides or {}).items():
+        set_nested(mgr.config, dotted, value)
+
+
+def separate_and_segment(
+    *,
+    input_uri: str,
+    export_dir: str,
+    mode: Optional[str] = None,
+    segments: Any = None,
+    alignment: Any = None,
+    device: Optional[str] = None,
+    export_types: Optional[Sequence[str]] = None,
+    layout: Optional[Mapping[str, Any]] = None,
+    strict_gpu: Optional[bool] = None,
+    export_manifest: bool = False,
+    manifest_filename: str = "SegmentManifest.json",
+    runtime_overrides: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Separate + segment one track and emit a manifest."""
+    if segments is not None or alignment is not None:
+        raise NotImplementedError(
+            "the lyrics intent (segments=/alignment=) is not in the PyTorch port yet: "
+            "ROADMAP.md, queue 1, 'the other modes'")
+    input_path = Path(input_uri).expanduser().resolve()
+    if not input_path.exists():
+        raise FileNotFoundError(f"input audio not found: {input_path}")
+    export_path = Path(export_dir).expanduser().resolve()
+
+    effective_mode = mode or "v2.2_mdd"
+
+    mgr = get_config_manager()
+    snapshot = copy.deepcopy(mgr.config)
+    try:
+        _apply_call_overrides(mgr, device=device, strict_gpu=strict_gpu,
+                              layout=layout, overrides=runtime_overrides)
+        torch_device = resolve_device(get_nested(mgr.config, "gpu_pipeline.prefer_device", "cuda"))
+        export_path.mkdir(parents=True, exist_ok=True)
+
+        layout_cfg = copy.deepcopy(get_nested(mgr.config, "segment_layout", {}) or {})
+        sample_rate = int(get_nested(mgr.config, "audio.sample_rate", 44100))
+        channels = int(get_nested(mgr.config, "audio.channels", 1))
+
+        splitter = SmartSplitter(torch_device, sample_rate=sample_rate)
+        result = splitter.split_audio_seamlessly(
+            str(input_path),
+            str(export_path),
+            mode=effective_mode,
+            export_plan=list(export_types) if export_types is not None else None,
+        )
+    finally:
+        mgr.config = snapshot
+
+    manifest = _build_manifest(
+        result=result,
+        input_path=input_path,
+        export_dir=export_path,
+        mode=effective_mode,
+        sample_rate=sample_rate,
+        channels=channels,
+        layout_cfg=layout_cfg,
+    )
+    if export_manifest:
+        mpath = export_path / manifest_filename
+        mpath.write_text(json.dumps(manifest, ensure_ascii=False, indent=2), encoding="utf-8")
+        manifest["manifest_path"] = mpath.as_posix()
+    return manifest
+
+
+# -- manifest -------------------------------------------------------------
+
+
+def _sha256(path: Path) -> str:
+    digest = hashlib.sha256()
+    with path.open("rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            digest.update(chunk)
+    return digest.hexdigest()
+
+
+def _rel(path_value: Any, base: Path) -> Optional[str]:
+    if not path_value:
+        return None
+    p = Path(str(path_value))
+    try:
+        return p.resolve().relative_to(base).as_posix()
+    except ValueError:
+        return p.as_posix()
+
+
+def _build_segments(result: Mapping[str, Any], export_dir: Path) -> List[Dict[str, Any]]:
+    cut_points = list(result.get("cut_points_sec", []))
+    labels = list(result.get("segment_labels", []))
+    durations = list(result.get("segment_durations", []))
+    mix_files = list(result.get("mix_segment_files", []))
+    vocal_files = list(result.get("vocal_segment_files", []))
+    debug = list(result.get("segment_classification_debug", []))
+
+    segments: List[Dict[str, Any]] = []
+    for idx, label in enumerate(labels):
+        start = cut_points[idx] if idx < len(cut_points) else sum(durations[:idx])
+        end = cut_points[idx + 1] if idx + 1 < len(cut_points) else (
+            start + (durations[idx] if idx < len(durations) else 0.0)
+        )
+        entry: Dict[str, Any] = {
+            "id": f"{idx + 1:04d}",
+            "start": start,
+            "end": end,
+            "duration": durations[idx] if idx < len(durations) else end - start,
+            "label": label,
+        }
+        if idx < len(mix_files):
+            entry["mix_path"] = _rel(mix_files[idx], export_dir)
+        if idx < len(vocal_files):
+            entry["vocal_path"] = _rel(vocal_files[idx], export_dir)
+        if idx < len(debug) and debug[idx]:
+            entry["debug"] = debug[idx]
+        segments.append(entry)
+    return segments
+
+
+def _collect_artifacts(result: Mapping[str, Any], export_dir: Path) -> Dict[str, Any]:
+    artifacts: Dict[str, Any] = {}
+    if result.get("mix_segment_files"):
+        artifacts["music_segments"] = [_rel(p, export_dir) for p in result["mix_segment_files"]]
+    if result.get("vocal_segment_files"):
+        artifacts["human_segments"] = [_rel(p, export_dir) for p in result["vocal_segment_files"]]
+    if result.get("full_vocal_file"):
+        artifacts["vocal_full"] = _rel(result["full_vocal_file"], export_dir)
+    if result.get("full_instrumental_file"):
+        artifacts["instrumental_full"] = _rel(result["full_instrumental_file"], export_dir)
+    if result.get("saved_files"):
+        artifacts["all"] = [_rel(p, export_dir) for p in result["saved_files"]]
+    artifacts["output_dir"] = export_dir.as_posix()
+    return artifacts
+
+
+def _estimate_duration(result: Mapping[str, Any], input_path: Path) -> Optional[float]:
+    cuts = result.get("cut_points_sec")
+    if cuts:
+        try:
+            return float(cuts[-1])
+        except (TypeError, ValueError):
+            pass
+    from audio_cut_tpu_torch.exceptions import AudioIOError
+    from audio_cut_tpu_torch.io.wavio import wav_info
+
+    try:
+        info = wav_info(input_path)
+        if info.frames and info.sample_rate:
+            return info.frames / float(info.sample_rate)
+    except (AudioIOError, OSError):
+        pass
+    durations = result.get("segment_durations")
+    if durations:
+        try:
+            return float(sum(durations))
+        except (TypeError, ValueError):
+            pass
+    return None
+
+
+def _build_manifest(
+    *,
+    result: Dict[str, Any],
+    input_path: Path,
+    export_dir: Path,
+    mode: str,
+    sample_rate: int,
+    channels: int,
+    layout_cfg: Mapping[str, Any],
+) -> Dict[str, Any]:
+    manifest: Dict[str, Any] = {
+        "version": str(mode),
+        "success": bool(result.get("success", False)),
+        "job": {"source": input_path.as_posix()},
+        "export_plan": result.get("export_plan") or [],
+        "audio": {
+            "sr": sample_rate,
+            "channels": channels,
+            "duration": _estimate_duration(result, input_path),
+            "hash": f"sha256:{_sha256(input_path)}",
+        },
+        "layout_cfg": dict(layout_cfg) | {"applied": bool(result.get("segment_layout_applied", False))},
+        "cuts": {
+            # the planner enrichment of the JAX package's _build_final_cuts
+            # joins boundary_detection, which the cutting modes bring
+            "final": list(result.get("cut_points_sec", [])),
+            "samples": result.get("cut_points_samples", []),
+            "suppressed": result.get("suppressed_cut_points_sec", []),
+        },
+        "segments": _build_segments(result, export_dir),
+        "artifacts": _collect_artifacts(result, export_dir),
+        "guard": {
+            "shift_stats": result.get("guard_shift_stats", {}),
+            "adjustments": result.get("guard_adjustments", []),
+            "precision_ok": bool(result.get("precision_guard_ok", True)),
+            "threshold_ms": result.get("precision_guard_threshold_ms", {}),
+        },
+        "separation": {
+            "backend": result.get("backend_used"),
+            "confidence": result.get("separation_confidence"),
+        },
+        "timings_ms": {
+            "total": int(round(float(result["processing_time"]) * 1000.0))
+            if result.get("processing_time") is not None else None,
+        },
+        "stats": {"num_segments": int(result.get("num_segments", 0))},
+    }
+
+    for key in ("note", "lyrics_alignment", "boundary_detection", "auto_profile", "intent"):
+        if result.get(key) is not None:
+            manifest[key] = result[key]
+
+    device_meta = {k: result[k] for k in result if k.startswith("gpu_pipeline_")}
+    if device_meta:
+        manifest["gpu"] = device_meta
+
+    manifest["qa_report"] = build_qa_report(manifest)
+    return manifest
+
+
+__all__ = ["separate_and_segment"]

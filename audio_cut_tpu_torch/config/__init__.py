@@ -1,0 +1,15 @@
+from audio_cut_tpu_torch.config.manager import (
+    ConfigManager,
+    get_config,
+    get_config_manager,
+    reset_runtime_config,
+    set_runtime_config,
+)
+
+__all__ = [
+    "ConfigManager",
+    "get_config",
+    "get_config_manager",
+    "set_runtime_config",
+    "reset_runtime_config",
+]

@@ -1,0 +1,124 @@
+"""The PyTorch port stands alone: no jax/flax/yaml/msgpack and nothing of
+audio_cut_tpu in its imports, CUDA by default, and its config defaults equal
+the JAX package's YAML apart from the device."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "audio_cut_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "msgpack", "audio_cut_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_port_sources_import_nothing_forbidden():
+    files = _port_files()
+    assert len(files) > 20 and (REPO / "chip_smoke.py").exists()
+    bad = [(p.relative_to(REPO).as_posix(), m) for p in files for m in _imported_roots(p)
+           if _forbidden(m)]
+    assert bad == []
+
+
+def test_import_leaves_forbidden_modules_unloaded():
+    code = (
+        "import sys, audio_cut_tpu_torch, audio_cut_tpu_torch.api, "
+        "audio_cut_tpu_torch.models.convtdf, audio_cut_tpu_torch.separation.engine, "
+        "audio_cut_tpu_torch.ops.ola\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_point_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
+    import numpy as np
+    import torch
+
+    from audio_cut_tpu_torch.api import separate_and_segment
+    from audio_cut_tpu_torch.io import write_wav
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    song = tmp_path / "song.wav"
+    write_wav(song, np.zeros(4410, np.float32), 44100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
+                             mode="vocal_separation")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
+                             mode="vocal_separation", device="cuda")
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("mode, item", [
+    ("v2.2_mdd", "next slice"),
+    ("librosa_onset", "the other modes"),
+])
+def test_modes_outside_the_slice_raise(tmp_path, mode, item):
+    import numpy as np
+
+    from audio_cut_tpu_torch.api import separate_and_segment
+    from audio_cut_tpu_torch.io import write_wav
+
+    song = tmp_path / "song.wav"
+    write_wav(song, np.zeros(4410, np.float32), 44100)
+    with pytest.raises(NotImplementedError, match=item):
+        separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
+                             mode=mode, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["spectral", "onnx"])
+def test_backends_outside_the_slice_raise(backend):
+    from audio_cut_tpu_torch.separation.backends import make_backend
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_backend(backend, 44100, "cpu")
+
+
+def test_config_defaults_are_the_jax_yaml_but_for_the_device():
+    yaml = pytest.importorskip("yaml")
+    from audio_cut_tpu.config.manager import deep_merge
+
+    merged = {}
+    for name in ("expert.yaml", "unified.yaml"):
+        deep_merge(merged, yaml.safe_load((REPO / "audio_cut_tpu" / "config" / name).read_text()))
+    port = json.loads((PORT / "config" / "defaults.json").read_text())
+    assert port["gpu_pipeline"].pop("prefer_device") == "cuda"
+    assert merged["gpu_pipeline"].pop("prefer_device") == "tpu"
+    assert port == merged
+
+
+@pytest.mark.parametrize("raw", ["true", "off", "NO", "null", "~", "", "12", "-3", "1_000",
+                                 "1.5", ".5", "1.", "1e3", "1.0e+3", "spectral", "[1, 2]",
+                                 '{"a": 1}'])
+def test_env_values_parse_as_yaml_scalars(raw):
+    yaml = pytest.importorskip("yaml")
+    from audio_cut_tpu_torch.config.manager import _coerce_env_value
+
+    got, want = _coerce_env_value(raw), yaml.safe_load(raw)
+    assert got == want and type(got) is type(want)

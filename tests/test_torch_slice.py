@@ -1,0 +1,103 @@
+"""The slice end to end: separate_and_segment(mode="vocal_separation") through
+both packages on the same synthetic song, with the packaged tiny ConvTDF in
+bfloat16 as in production; the port runs on device="cpu".
+
+Both runs pin the backend to convtdf (tests/conftest.py pins the JAX package
+to spectral through the environment) and turn the JAX package's pipelined
+piece upload off: it computes the same stems as the whole-track device OLA
+the port runs, and would only change the manifest's gpu_pipeline_mode.
+
+Bounds: bfloat16 rounds at other places in XLA and in PyTorch, so the vocal
+stems agree to an SNR of 30 dB or more, and the confidence, an energy ratio
+of the vocal, to 1e-3. Everything else in the
+manifest is equal, apart from timings and the output paths. In each package
+the instrumental file is exactly its own PCM-24 encoding of mix - vocal.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+from conftest import make_song  # noqa: E402
+
+OVERRIDES = {
+    "enhanced_separation.backend": "convtdf",
+    "enhanced_separation.convtdf.checkpoint": "packaged_tiny",
+    "device_pipeline.pipelined_upload": False,
+}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from audio_cut_tpu.api import separate_and_segment as jax_run
+    from audio_cut_tpu.io import write_wav
+    from audio_cut_tpu_torch.api import separate_and_segment as torch_run
+
+    root = tmp_path_factory.mktemp("slice")
+    audio, sr = make_song(4.0)
+    song = root / "song.wav"
+    write_wav(song, audio, sr, subtype="FLOAT")
+    mj = jax_run(input_uri=str(song), export_dir=str(root / "jax"), mode="vocal_separation",
+                 export_manifest=True, runtime_overrides=OVERRIDES)
+    mt = torch_run(input_uri=str(song), export_dir=str(root / "torch"),
+                   mode="vocal_separation", device="cpu", export_manifest=True,
+                   runtime_overrides=OVERRIDES)
+    return root, audio, mj, mt
+
+
+def test_same_files(runs):
+    root, _, mj, mt = runs
+    assert mj["success"] and mt["success"]
+    names = sorted(p.name for p in (root / "jax").iterdir())
+    assert names == sorted(p.name for p in (root / "torch").iterdir())
+    assert names == ["SegmentManifest.json", "song_instrumental_4.0.wav", "song_vocal_4.0.wav"]
+
+
+def test_same_manifest_but_timings_and_paths(runs):
+    root, _, mj, mt = runs
+
+    def scrub(m):
+        m = copy.deepcopy(m)
+        m.pop("timings_ms")
+        m.pop("manifest_path")
+        m["artifacts"].pop("output_dir")
+        for k in ("gpu_pipeline_compute_ms", "gpu_pipeline_total_ms", "gpu_pipeline_device"):
+            m["gpu"].pop(k)
+        m["separation"].pop("confidence")
+        return m
+
+    assert scrub(mt) == scrub(mj)
+    assert mt["gpu"]["gpu_pipeline_device"] == "cpu"
+    assert mt["gpu"]["gpu_pipeline_mode"] == "device_ola"
+    assert abs(mt["separation"]["confidence"] - mj["separation"]["confidence"]) <= 1e-3
+
+
+def test_vocal_stems_agree(runs):
+    from audio_cut_tpu_torch.io import read_wav
+
+    root, audio, mj, mt = runs
+    vj, _ = read_wav(root / "jax" / mj["artifacts"]["vocal_full"])
+    vt, _ = read_wav(root / "torch" / mt["artifacts"]["vocal_full"])
+    assert vj.shape == vt.shape == audio.shape
+    assert np.isfinite(vt).all()
+    vj64 = vj.astype(np.float64)
+    snr = 10 * np.log10(np.sum(vj64 ** 2) / np.sum((vj64 - vt) ** 2))
+    assert snr >= 30.0, snr
+
+
+def test_instrumental_is_the_exact_complement_in_both(runs):
+    from audio_cut_tpu.io import read_wav as jax_read
+    from audio_cut_tpu.native import get_pcm_codec
+    from audio_cut_tpu_torch.io.wavio import decode_pcm24, encode_pcm24, read_wav
+
+    root, audio, mj, mt = runs
+    codec = get_pcm_codec()
+    v, _ = jax_read(root / "jax" / mj["artifacts"]["vocal_full"])
+    i, _ = jax_read(root / "jax" / mj["artifacts"]["instrumental_full"])
+    np.testing.assert_array_equal(i, codec.decode_pcm24(codec.encode_pcm24(audio - v)))
+    v, _ = read_wav(root / "torch" / mt["artifacts"]["vocal_full"])
+    i, _ = read_wav(root / "torch" / mt["artifacts"]["instrumental_full"])
+    np.testing.assert_array_equal(i, decode_pcm24(encode_pcm24(audio - v)))
