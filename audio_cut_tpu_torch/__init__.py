@@ -3,8 +3,9 @@
 A second package beside the JAX reference: the same functions in PyTorch,
 with every Pallas kernel of the reference rewritten by hand for NVIDIA Hopper
 (``csrc/``). Entry points run on CUDA unless the caller passes ``device="cpu"``.
-This slice runs ``separate_and_segment(mode="vocal_separation")`` with the
-ConvTDF separator; ROADMAP.md lists what comes next.
+It runs ``separate_and_segment()`` in its default ``v2.2_mdd`` mode (ConvTDF
+separation, the detection bundle with ConvVAD, the host cutting tail) and in
+``mode="vocal_separation"``; ROADMAP.md lists what comes next.
 """
 
 from audio_cut_tpu_torch.api import separate_and_segment

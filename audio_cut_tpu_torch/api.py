@@ -3,9 +3,10 @@
 Counterpart of ``audio_cut_tpu/api.py``, with the same signature and
 manifest schema. The ``device`` argument maps to
 ``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
-device and no explicit ``"cpu"`` the call raises. This slice runs
-``mode="vocal_separation"``; the lyrics intent (``segments``/``alignment``)
-and the batch entry point come with the modes that use them (ROADMAP.md).
+device and no explicit ``"cpu"`` the call raises. The port runs the default
+``mode="v2.2_mdd"`` and ``mode="vocal_separation"``; the lyrics intent
+(``segments``/``alignment``) and the batch entry point come with the modes
+that use them (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """SmartSplitter: the mode-dispatch orchestrator.
 
-Counterpart of ``audio_cut_tpu/pipeline/splitter.py``. This slice of the
-port runs ``vocal_separation`` (stems only); the other modes raise
+Counterpart of ``audio_cut_tpu/pipeline/splitter.py``. The port runs
+``v2.2_mdd`` (the default: pause detection, guards, layout, segments) and
+``vocal_separation`` (stems only); the other modes raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -16,6 +17,7 @@ import torch
 from audio_cut_tpu_torch.config import get_config
 from audio_cut_tpu_torch.io.audio import load_audio
 from audio_cut_tpu_torch.io.segment_export import SegmentExporter
+from audio_cut_tpu_torch.pipeline.result import ResultBuilder
 
 KNOWN_MODES = (
     "vocal_separation",
@@ -27,7 +29,6 @@ KNOWN_MODES = (
 )
 
 _NOT_PORTED = {
-    "v2.2_mdd": "next slice: v2.2_mdd",
     "librosa_onset": "the other modes",
     "hybrid_mdd": "the other modes",
     "vpbd_acoustic": "the other modes",
@@ -39,6 +40,7 @@ class SmartSplitter:
     def __init__(self, device: torch.device, sample_rate: Optional[int] = None) -> None:
         self.device = torch.device(device)
         self.sample_rate = int(sample_rate or get_config("audio.sample_rate", 44100))
+        self.result_builder = ResultBuilder()
         self.segment_exporter = SegmentExporter(self.sample_rate)
         self._export_format = str(get_config("output.format", "wav"))
         self._export_options = dict(get_config("output.wav", {}) or {})
@@ -59,6 +61,11 @@ class SmartSplitter:
                 f"'{_NOT_PORTED[mode]}'")
         Path(output_dir).mkdir(parents=True, exist_ok=True)
 
+        if mode == "v2.2_mdd":
+            from audio_cut_tpu_torch.pipeline.modes.pure_vocal import process_pure_vocal_split
+
+            return process_pure_vocal_split(self, input_path, output_dir, mode=mode,
+                                            export_plan=export_plan)
         from audio_cut_tpu_torch.pipeline.modes.separation_mode import process_vocal_separation
 
         return process_vocal_separation(self, input_path, output_dir, export_plan=export_plan)

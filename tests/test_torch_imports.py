@@ -44,9 +44,9 @@ def test_port_sources_import_nothing_forbidden():
 
 def test_import_leaves_forbidden_modules_unloaded():
     code = (
-        "import sys, audio_cut_tpu_torch, audio_cut_tpu_torch.api, "
-        "audio_cut_tpu_torch.models.convtdf, audio_cut_tpu_torch.separation.engine, "
-        "audio_cut_tpu_torch.ops.ola\n"
+        "import sys, pkgutil, importlib, audio_cut_tpu_torch\n"
+        "for m in pkgutil.walk_packages(audio_cut_tpu_torch.__path__, 'audio_cut_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -76,7 +76,7 @@ def test_entry_point_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mode, item", [
-    ("v2.2_mdd", "next slice"),
+    ("hybrid_mdd", "the other modes"),
     ("librosa_onset", "the other modes"),
 ])
 def test_modes_outside_the_slice_raise(tmp_path, mode, item):
@@ -90,6 +90,29 @@ def test_modes_outside_the_slice_raise(tmp_path, mode, item):
     with pytest.raises(NotImplementedError, match=item):
         separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
                              mode=mode, device="cpu")
+
+
+def test_default_mode_options_outside_the_slice_raise(tmp_path):
+    import numpy as np
+
+    from audio_cut_tpu_torch.api import separate_and_segment
+    from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
+    from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
+    from audio_cut_tpu_torch.io import write_wav
+
+    song = tmp_path / "song.wav"
+    write_wav(song, np.zeros(4410, np.float32), 44100)
+    with pytest.raises(NotImplementedError, match="staged bundle path"):
+        separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"), device="cpu",
+                             runtime_overrides={"device_pipeline.fused_program": False})
+    set_runtime_config({"v2_mdd.pure_vocal_detection.enable_relative_energy_mode": False})
+    try:
+        with pytest.raises(NotImplementedError, match="legacy multi-feature detector"):
+            PureVocalPauseDetector(44100).detect_pure_vocal_pauses(
+                rms_env=np.ones(11, np.float32), env_db_grid=np.zeros(70, np.float32),
+                env_db_stride=64, n_samples=4410)
+    finally:
+        reset_runtime_config()
 
 
 @pytest.mark.parametrize("backend", ["spectral", "onnx"])

@@ -101,3 +101,63 @@ def test_instrumental_is_the_exact_complement_in_both(runs):
     v, _ = read_wav(root / "torch" / mt["artifacts"]["vocal_full"])
     i, _ = read_wav(root / "torch" / mt["artifacts"]["instrumental_full"])
     np.testing.assert_array_equal(i, decode_pcm24(encode_pcm24(audio - v)))
+
+
+# -- the default mode: v2.2_mdd ---------------------------------------------
+#
+# The same song generator at 15 s: it pads to the same 15 s bucket as 10 s
+# (so it costs the JAX package no more) and has a pause the layout keeps,
+# where 10 s comes out as one segment with no cut to compare. The port runs
+# with no mode (the default, v2.2_mdd); the JAX package with the mode named.
+# Both use the tiny ConvTDF in bfloat16 and the packaged ConvVAD.
+#
+# Bounds: bfloat16 separation noise moves the vocal stem, and with it the
+# envelopes the cuts are read from, so every cut agrees within 441 samples
+# (10 ms) and the segment count and labels are equal. Each package's segments
+# splice back to its own PCM-24 encoding of the input exactly.
+
+
+@pytest.fixture(scope="module")
+def mdd_runs(tmp_path_factory):
+    from audio_cut_tpu.api import separate_and_segment as jax_run
+    from audio_cut_tpu.io import write_wav
+    from audio_cut_tpu_torch.api import separate_and_segment as torch_run
+
+    root = tmp_path_factory.mktemp("slice_mdd")
+    audio, sr = make_song(15.0)
+    song = root / "song.wav"
+    write_wav(song, audio, sr, subtype="FLOAT")
+    mj = jax_run(input_uri=str(song), export_dir=str(root / "jax"), mode="v2.2_mdd",
+                 runtime_overrides=OVERRIDES)
+    mt = torch_run(input_uri=str(song), export_dir=str(root / "torch"), device="cpu",
+                   runtime_overrides=OVERRIDES)
+    return root, audio, mj, mt
+
+
+def test_mdd_same_segments_and_labels(mdd_runs):
+    _, _, mj, mt = mdd_runs
+    assert mj["success"] and mt["success"]
+    assert mt["version"] == mj["version"] == "v2.2_mdd"
+    assert mt["gpu"]["gpu_pipeline_mode"] == mj["gpu"]["gpu_pipeline_mode"]
+    assert len(mt["segments"]) == len(mj["segments"]) >= 2
+    assert [s["label"] for s in mt["segments"]] == [s["label"] for s in mj["segments"]]
+
+
+def test_mdd_cuts_within_10_ms(mdd_runs):
+    _, _, mj, mt = mdd_runs
+    sj, st = mj["cuts"]["samples"], mt["cuts"]["samples"]
+    assert len(st) == len(sj)
+    assert max(abs(a - b) for a, b in zip(st, sj)) <= 441
+
+
+def test_mdd_segments_splice_back_in_both(mdd_runs):
+    from audio_cut_tpu.io import read_wav as jax_read
+    from audio_cut_tpu.native import get_pcm_codec
+    from audio_cut_tpu_torch.io.wavio import decode_pcm24, encode_pcm24, read_wav
+
+    root, audio, mj, mt = mdd_runs
+    codec = get_pcm_codec()
+    xj = np.concatenate([jax_read(root / "jax" / s["mix_path"])[0] for s in mj["segments"]])
+    xt = np.concatenate([read_wav(root / "torch" / s["mix_path"])[0] for s in mt["segments"]])
+    np.testing.assert_array_equal(xj, codec.decode_pcm24(codec.encode_pcm24(audio)))
+    np.testing.assert_array_equal(xt, decode_pcm24(encode_pcm24(audio)))
