@@ -30,6 +30,7 @@ What carries the flax semantics over (each checked against flax 0.12.3 by
 from __future__ import annotations
 
 import json
+import math
 import os
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -177,6 +178,44 @@ class ConvTDFNet(nn.Module):
         mask = _head_conv_f32(x.float().contiguous(), self.head.weight, self.head.bias)
         return mask.permute(0, 2, 3, 1).contiguous()
 
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """Initialise in place as flax's ``init`` does: every conv, transposed
+        conv and dense kernel ``lecun_normal``, biases 0, GroupNorm scale 1
+        and bias 0. The draws come from ``generator`` (a CPU generator) in
+        module order, so the result is the same on any device; they are not
+        flax's draws for any key."""
+        for module in self.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = module.weight
+                if isinstance(module, nn.Linear):
+                    fan_in = w.shape[1]                     # flax (in, out)
+                elif isinstance(module, nn.ConvTranspose2d):
+                    fan_in = w.shape[0] * w.shape[2] * w.shape[3]  # stored (in, out, kh, kw)
+                else:
+                    fan_in = w.shape[1] * w.shape[2] * w.shape[3]  # (out, in, kh, kw)
+                w.copy_(_lecun_normal(tuple(w.shape), fan_in, generator))
+                module.bias.zero_()
+            elif isinstance(module, GroupNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+
+
+# flax's truncated normal at +-2 sigma: the stddev that gives the truncated
+# draw a variance of 1 / fan_in (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape: Tuple[int, ...], fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """``jax.nn.initializers.lecun_normal``: a normal cut at +-2 sigma, by the
+    inverse CDF of a uniform draw as ``jax.random.truncated_normal`` does it,
+    scaled to stddev ``sqrt(1 / fan_in) / 0.8796...``. float32, on the CPU."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32) * (hi - lo) + lo
+    z = math.sqrt(2.0) * torch.erfinv(u)
+    z = z.clamp(math.nextafter(-2.0, 0.0), math.nextafter(2.0, 0.0))
+    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
 
 def _conv_weight(kernel: np.ndarray) -> torch.Tensor:
     """flax conv kernel (kh, kw, in, out) -> torch conv2d weight (out, in, kh, kw)."""
@@ -241,6 +280,75 @@ def convert_convtdf_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _flax_conv_kernel(weight: torch.Tensor) -> np.ndarray:
+    """Inverse of ``_conv_weight``: (out, in, kh, kw) -> (kh, kw, in, out)."""
+    return np.ascontiguousarray(np.transpose(_np32(weight), (2, 3, 1, 0)))
+
+
+def _flax_conv_transpose_kernel(weight: torch.Tensor) -> np.ndarray:
+    """Inverse of ``_conv_transpose_weight``: flipped (in, out, kh, kw) ->
+    flax's unflipped (kh, kw, in, out)."""
+    w = _np32(weight)[:, :, ::-1, ::-1]
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1)))
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``convert_convtdf_params``: a ``ConvTDFNet`` state_dict (or a
+    dict of its gradients under the same names) -> the flax parameter tree as
+    float32 numpy, keys sorted as ``jax.device_get`` leaves them. Every entry
+    of ``state`` lands in exactly one leaf; an unexpected entry raises."""
+    depth = sum(1 for k in state if k.startswith("down.") and k.endswith(".weight"))
+    tree: Dict[str, Any] = {}
+    used = set()
+
+    def take(name: str) -> torch.Tensor:
+        used.add(name)
+        return state[name]
+
+    def block(prefix: str) -> Dict[str, Any]:
+        p: Dict[str, Any] = {}
+        for i, conv in ((0, "conv1"), (1, "conv2")):
+            p[f"Conv_{i}"] = {"bias": _np32(take(f"{prefix}.{conv}.bias")),
+                              "kernel": _flax_conv_kernel(take(f"{prefix}.{conv}.weight"))}
+            p[f"GroupNorm_{i}"] = {"bias": _np32(take(f"{prefix}.norm{i + 1}.bias")),
+                                   "scale": _np32(take(f"{prefix}.norm{i + 1}.weight"))}
+        if f"{prefix}.tdf.fc1.weight" in state:
+            p["TDF_0"] = {
+                f"Dense_{i}": {"bias": _np32(take(f"{prefix}.tdf.{fc}.bias")),
+                               "kernel": np.ascontiguousarray(
+                                   _np32(take(f"{prefix}.tdf.{fc}.weight")).T)}
+                for i, fc in ((0, "fc1"), (1, "fc2"))}
+        return p
+
+    tree["ConvBlock_0"] = block("first")
+    for i in range(depth):
+        tree[f"ConvBlock_{i + 1}"] = block(f"enc.{i}")
+        tree[f"Conv_{i}"] = {"bias": _np32(take(f"down.{i}.bias")),
+                             "kernel": _flax_conv_kernel(take(f"down.{i}.weight"))}
+    tree[f"ConvBlock_{depth + 1}"] = block("bottleneck")
+    for i in range(depth):
+        tree[f"ConvBlock_{depth + 2 + i}"] = block(f"dec.{i}")
+        tree[f"ConvTranspose_{i}"] = {
+            "bias": _np32(take(f"up.{i}.bias")),
+            "kernel": _flax_conv_transpose_kernel(take(f"up.{i}.weight"))}
+    tree[f"Conv_{depth}"] = {"bias": _np32(take("head.bias")),
+                             "kernel": _flax_conv_kernel(take("head.weight"))}
+    extra = set(state) - used
+    if extra:
+        raise ValueError(f"unexpected state_dict entries {sorted(extra)}")
+    return _sorted_tree(tree)
+
+
+def _sorted_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def apply_complex_mask(spec: torch.Tensor, mask_ri: torch.Tensor) -> torch.Tensor:
     """Complex ratio mask: (mr + i*mi) * spec."""
     return torch.complex(mask_ri[..., 0], mask_ri[..., 1]) * spec
@@ -283,13 +391,22 @@ class ConvTDFSeparator(nn.Module):
         full = torch.cat([masked, rest], dim=-1)
         return istft(full, n_fft=self.n_fft, hop=self.hop, length=length)
 
-    @torch.inference_mode()
-    def separate(self, audio: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, S] windows -> (vocal, instrumental = window - vocal), each [B, length]."""
+    def init_params(self, generator: torch.Generator) -> None:
+        """flax-style initialisation of the net in place (``ConvTDFNet.init_params``)."""
+        self.net.init_params(generator)
+
+    def separate_fn(self, audio: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, S] windows -> (vocal, instrumental = window - vocal), each
+        [B, length]; differentiable in the net's parameters."""
         spec, ri = self.analyze(audio)
         mask = self.net(ri)
         vocal = self.synthesize(spec, mask, length)
         return vocal, audio[..., :length] - vocal
+
+    @torch.inference_mode()
+    def separate(self, audio: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``separate_fn`` under ``inference_mode``: the serving path."""
+        return self.separate_fn(audio, length)
 
 
 def packaged_checkpoint_path() -> Optional[str]:

@@ -1,4 +1,4 @@
-"""Pure-Python reader for flax msgpack checkpoints.
+"""Pure-Python reader and writer for flax msgpack checkpoints.
 
 The packaged checkpoints under ``audio_cut_tpu/models/weights/`` were written
 by ``flax.serialization.to_bytes``: a msgpack map of maps whose leaves are
@@ -13,6 +13,12 @@ flax installed:
 
 flax splits array leaves above 2**30 bytes into chunks; no checkpoint of
 this repository is near that size, and a chunked leaf raises.
+
+``write_flax_msgpack`` is the inverse for a parameter tree: nested dicts of
+str keys whose leaves are numpy arrays, encoded as
+``flax.serialization.to_bytes`` encodes them (msgpack maps in the dicts'
+order, each array an ext type 1 value holding ``(shape, dtype name,
+row-major bytes)``, every msgpack value in its shortest form).
 """
 
 from __future__ import annotations
@@ -153,3 +159,101 @@ def flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> dict:
             out.update(flatten(v, prefix + (str(k),)))
         return out
     return {prefix: tree}
+
+
+_MAX_LEAF_BYTES = 2 ** 30  # above this flax would chunk the leaf
+
+
+def _pack_uint_header(small_base: int, small_max: int, codes: Tuple[int, int, int], n: int,
+                      out: bytearray) -> None:
+    """A length header: fix form below ``small_max``, else the 8/16/32-bit
+    form of ``codes`` (``None`` where msgpack has no 8-bit form)."""
+    if n <= small_max:
+        out.append(small_base | n)
+    elif codes[0] is not None and n <= 0xFF:
+        out += struct.pack(">BB", codes[0], n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", codes[1], n)
+    elif n <= 0xFFFFFFFF:
+        out += struct.pack(">BI", codes[2], n)
+    else:
+        raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(v: int, out: bytearray) -> None:
+    if 0 <= v <= 0x7F:
+        out.append(v)
+    elif -32 <= v < 0:
+        out.append(v & 0xFF)
+    elif v > 0:
+        for code, fmt, top in ((0xCC, ">BB", 0xFF), (0xCD, ">BH", 0xFFFF),
+                               (0xCE, ">BI", 0xFFFFFFFF), (0xCF, ">BQ", 0xFFFFFFFFFFFFFFFF)):
+            if v <= top:
+                out += struct.pack(fmt, code, v)
+                return
+        raise ValueError(f"integer {v} too large for msgpack")
+    else:
+        for code, fmt, low in ((0xD0, ">Bb", -0x80), (0xD1, ">Bh", -0x8000),
+                               (0xD2, ">Bi", -0x80000000), (0xD3, ">Bq", -0x8000000000000000)):
+            if v >= low:
+                out += struct.pack(fmt, code, v)
+                return
+        raise ValueError(f"integer {v} too small for msgpack")
+
+
+def _pack_str(s: str, out: bytearray) -> None:
+    data = s.encode("utf-8")
+    _pack_uint_header(0xA0, 31, (0xD9, 0xDA, 0xDB), len(data), out)
+    out += data
+
+
+def _pack_bin(data: bytes, out: bytearray) -> None:
+    _pack_uint_header(0, -1, (0xC4, 0xC5, 0xC6), len(data), out)
+    out += data
+
+
+def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _pack_uint_header(0, -1, (0xC7, 0xC8, 0xC9), len(data), out)
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _pack_ndarray(arr: np.ndarray, out: bytearray) -> None:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct or arr.dtype.fields:
+        raise TypeError(f"cannot write a {arr.dtype} array to a flax checkpoint")
+    if arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError("array leaves above 2**30 bytes (chunked by flax) are not supported")
+    header = bytearray()
+    _pack_uint_header(0x90, 15, (None, 0xDC, 0xDD), 3, header)  # (shape, dtype, bytes)
+    _pack_uint_header(0x90, 15, (None, 0xDC, 0xDD), arr.ndim, header)
+    for dim in arr.shape:
+        _pack_int(int(dim), header)
+    _pack_str(arr.dtype.name, header)
+    _pack_bin(arr.tobytes("C"), header)
+    _pack_ext(_EXT_NDARRAY, bytes(header), out)
+
+
+def _pack_tree(tree: Any, out: bytearray) -> None:
+    if isinstance(tree, dict):
+        _pack_uint_header(0x80, 15, (None, 0xDE, 0xDF), len(tree), out)
+        for key, value in tree.items():
+            if not isinstance(key, str):
+                raise TypeError(f"flax checkpoint keys are str, got {key!r}")
+            _pack_str(key, out)
+            _pack_tree(value, out)
+    elif isinstance(tree, np.ndarray):
+        _pack_ndarray(tree, out)
+    else:
+        raise TypeError(f"a flax parameter tree holds dicts and numpy arrays, got {type(tree)}")
+
+
+def write_flax_msgpack(tree: Any) -> bytes:
+    """Encode a parameter tree (nested dicts of str keys, numpy array leaves)
+    as ``flax.serialization.to_bytes`` does."""
+    out = bytearray()
+    _pack_tree(tree, out)
+    return bytes(out)

@@ -10,6 +10,18 @@ CPU has no ``nvcc``.
 
 A ``CudaKernel`` counts its launches in a plain integer (``launches``); a run
 resets it to 0 to show that its path went through the kernel.
+
+Kernel K0 (``csrc/probe.cu``, x * 2 on one (8, 128) float32 tile) is the
+library's build-and-launch check, the counterpart of the JAX package's
+Pallas probe (``audio_cut_tpu/ops/pallas/probe.py``). Before the first launch
+of any other kernel on a card, ``CudaKernel.launch`` builds and launches K0
+once on that card and holds its result to ``probe_reference`` exactly; a
+mismatch or a CUDA error raises. It is a check that fails loudly, not a gate:
+nothing switches to a plain version.
+
+``CudaKernel.launch`` takes the device of the tensors it launches on, makes
+it the current device for the launch (the C functions launch on the current
+device's context) and runs the library check on that device.
 """
 
 from __future__ import annotations
@@ -21,7 +33,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -89,9 +103,57 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the C launch function; raise on a non-zero CUDA error code."""
-        rc = self._load()(*args)
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C launch function with ``device`` current; raise on a
+        non-zero CUDA error code. The first launch on ``device`` of a kernel
+        other than K0 runs the library check there. One call counts one
+        launch, whatever number of kernels the C function starts."""
+        if self is not K0 and device.index not in LIBRARY_CHECK:
+            check_kernel_library(device)
+        fn = self._load()
+        with torch.cuda.device(device):
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.source}.cu:{self.symbol} failed with CUDA error {rc}")
         self.launches += 1
+
+
+K0 = CudaKernel("probe", "probe_launch",
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+PROBE_SHAPE = (8, 128)
+# the library check of each card it passed on: device index -> K0's
+# max |kernel - plain| there
+LIBRARY_CHECK: Dict[int, float] = {}
+
+
+def probe_reference(x: torch.Tensor) -> torch.Tensor:
+    """K0's plain version."""
+    return x * 2.0
+
+
+def probe_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch K0 on ``torch.cuda.current_stream()``: x * 2 for float32 ``x``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"K0 takes a contiguous float32 CUDA tensor, got {x.dtype} on {x.device}")
+    if x.numel() == 0:
+        raise ValueError("K0 takes at least one element")
+    out = torch.empty_like(x)
+    K0.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+              torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def check_kernel_library(device: Optional[torch.device] = None) -> None:
+    """Build and launch K0 on ``device`` (the current CUDA device if None)
+    and hold its result to x * 2 exactly; record it in ``LIBRARY_CHECK``.
+    Raises on a failed build, a CUDA error or a mismatch."""
+    index = torch.cuda.current_device() if device is None or device.index is None else device.index
+    x = (torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32) / 7.0 - 50.0)
+    x = x.reshape(PROBE_SHAPE).to(torch.device("cuda", index))
+    got = probe_cuda(x)
+    torch.cuda.synchronize(x.device)
+    err = float((got - probe_reference(x)).abs().max())
+    if err != 0.0:
+        raise RuntimeError(f"kernel library check (K0, csrc/probe.cu) on cuda:{index}: "
+                           f"x * 2 is off by {err}")
+    LIBRARY_CHECK[index] = err

@@ -59,7 +59,7 @@ def spectral_stats_cuda(mag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"K2 takes 1..{_MAX_GRID_X} frames of >= 1 bin, got {t} x {f}")
     flat = torch.empty(t, dtype=torch.float32, device=mag.device)
     onset = torch.empty(t, dtype=torch.float32, device=mag.device)
-    K2.launch(mag.data_ptr(), flat.data_ptr(), onset.data_ptr(), t, f,
+    K2.launch(mag.device, mag.data_ptr(), flat.data_ptr(), onset.data_ptr(), t, f,
               torch.cuda.current_stream(mag.device).cuda_stream)
     return flat, onset
 

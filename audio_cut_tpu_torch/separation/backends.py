@@ -1,17 +1,107 @@
 """Separation backends behind the engine.
 
-Counterpart of ``audio_cut_tpu/separation/backends.py``. This slice of the
-port has the ``convtdf`` backend only; asking for another raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Counterpart of ``audio_cut_tpu/separation/backends.py``. The engine's
+``make_backend`` has the ``convtdf`` backend only; asking for another raises
+``NotImplementedError`` naming its ROADMAP.md item. ``SpectralMaskBackend``
+is ported for the trainer's held-out comparison
+(``training/train_separator.py``); as an engine backend, with the fallback
+chain, it waits for its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from audio_cut_tpu_torch.config import get_config
+from audio_cut_tpu_torch.ops.stft import istft, stft
+
+
+@functools.lru_cache(maxsize=None)
+def _batcher_pairs(n: int) -> Tuple[Tuple[int, int], ...]:
+    """Compare-exchange pairs of Batcher's odd-even mergesort for n lanes."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (p * 2) == (i + j + k) // (p * 2):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return tuple(pairs)
+
+
+def _median_of(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Exact elementwise median of same-shape tensors (odd count) by a
+    min/max sorting network, as the JAX package computes it."""
+    vals = list(parts)
+    for a, b in _batcher_pairs(len(vals)):
+        vals[a], vals[b] = torch.minimum(vals[a], vals[b]), torch.maximum(vals[a], vals[b])
+    return vals[len(vals) // 2]
+
+
+def _median_filter_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
+    """Median filter along one axis via stacked shifted slices (edge-padded)."""
+    half = size // 2
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    first = x.narrow(axis, 0, 1).expand(*x.shape[:axis], half, *x.shape[axis + 1:])
+    last = x.narrow(axis, n - 1, 1).expand(*x.shape[:axis], half, *x.shape[axis + 1:])
+    xp = torch.cat([first, x, last], dim=axis)
+    return _median_of([xp.narrow(axis, k, n) for k in range(size)])
+
+
+class SpectralMaskBackend:
+    """Model-free vocal/instrumental split via harmonic-percussive masking:
+    median-filtered harmonic and percussive soft masks times a vocal-band
+    weight, on the STFT at ``n_fft`` / ``hop``; the iSTFT runs K1."""
+
+    name = "spectral"
+
+    def __init__(self, sample_rate: int, n_fft: int = 2048, hop: int = 512):
+        self.sample_rate = int(sample_rate)
+        self.n_fft = n_fft
+        self.hop = hop
+        cfg = get_config("enhanced_separation.spectral", {}) or {}
+        self.kernel_t = int(cfg.get("kernel_t", 31))
+        self.kernel_f = int(cfg.get("kernel_f", 31))
+        power = float(cfg.get("hpss_power", 2.0))
+        # an integral exponent stays an int, as in the JAX package (there a
+        # float exponent lowers to exp/log)
+        self.power = int(power) if power == int(power) else power
+        vs = get_config("vocal_separation", {}) or {}
+        lo, hi = float(vs.get("vocal_freq_min", 100)), float(vs.get("vocal_freq_max", 4000))
+        core_lo, core_hi = float(vs.get("vocal_core_min", 200)), float(vs.get("vocal_core_max", 1000))
+        freqs = np.fft.rfftfreq(n_fft, d=1.0 / self.sample_rate)
+        self._band = torch.from_numpy(np.clip(
+            np.minimum((freqs - lo) / max(core_lo - lo, 1.0), (hi - freqs) / max(hi - core_hi, 1.0)),
+            0.0, 1.0).astype(np.float32))
+
+    def _separate(self, audio: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        spec = stft(audio, n_fft=self.n_fft, hop=self.hop)        # [T, F]
+        mag = torch.abs(spec)
+        harm = _median_filter_axis(mag, self.kernel_t, axis=-2)   # smooth across time
+        perc = _median_filter_axis(mag, self.kernel_f, axis=-1)   # smooth across freq
+        hp = torch.pow(harm, self.power)
+        pp = torch.pow(perc, self.power)
+        total = hp + pp + 1e-10
+        h_mask = hp / total
+        # vocals: harmonically sustained energy inside the vocal band that is
+        # NOT flat across frequency (percussive): band-weighted Wiener
+        v_mask = h_mask * self._band.to(audio.device)[None, :]
+        vocal = istft(spec * v_mask, n_fft=self.n_fft, hop=self.hop, length=length)
+        return vocal, audio[..., :length] - vocal
+
+    @torch.inference_mode()
+    def separate_window(self, window: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One float32 window [S] on its device -> (vocal, instrumental), each [S]."""
+        return self._separate(window, int(window.shape[-1]))
 
 _NOT_PORTED = {
     "spectral": "the spectral backend and the fallback chain",

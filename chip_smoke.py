@@ -6,11 +6,20 @@
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. builds every CUDA kernel of the port from ``audio_cut_tpu_torch/csrc`` with
    nvcc, one process per source, all started together, and prints each
-   build's time;
+   build's time; checks that the first kernel launch of the process ran the
+   library check, K0 (``csrc/probe.cu``), exactly once, with a result equal to
+   x * 2, and times K0;
 3. holds kernel K1 (windowed overlap-add, ``csrc/ola.cu``) against its plain
    PyTorch version at atol 1e-5, at both shapes the main path gives it and two
    others, and times it at the serving shape beside its plain version,
-   ``F.fold`` and its bound;
+   ``F.fold`` and its bound; holds K1's backward kernels (``csrc/ola.cu``:
+   K1B, the frames' gradient, exactly; K1W, the window's, within
+   ``OLA_BWD_RTOL`` of the sum of |terms|) against the plain backward at the
+   same shapes, the training shape and a hop that takes the kernels' scalar
+   path, checks that autograd through the iSTFT on the card launches K1B and
+   gives the CPU's gradient, and times K1B, K1W and the two together at the
+   training shape beside the plain backward, the backward of ``F.fold`` and
+   their bounds;
 4. holds kernel K2 (spectral flatness and onset, ``csrc/frame_stats.cu``)
    against its plain version at rtol 2e-4 / atol 2e-5, at the feature grids of
    a 60 s and a 3-minute song and two edge shapes, and times it at the 60 s
@@ -20,7 +29,10 @@
    and no device, with the packaged ConvTDF-large and ConvVAD, on a
    synthesized 60 s song, cold then warm. Each call must succeed, give >= 2
    segments labelled human or music that splice back to the PCM-24 encoding
-   of the input exactly, and launch K1 3 times and K2 once;
+   of the input exactly, and launch K1 3 times and K2 once; the two calls
+   launch K0 once. Before each path the script sets every launch count to 0
+   and re-arms the library check (``reset_counts``), so each path shows K0
+   as a fresh process would;
 6. computes the detection bundle from the warm call's stems on the card and
    on the CPU (plain versions, float32) and holds every output of the card to
    the CPU's within the bounds of ``BUNDLE_TOL``, K2 on the main path's own
@@ -33,10 +45,26 @@
    spans of the pass (load, separation, detection bundle, host tail,
    export), the card's busy time, the kernels that take it and K1's and K2's
    device time per launch;
-9. prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+9. drives the training slice through its entry point,
+   ``train_separator.main``: ConvTDF-large at full width from the packaged
+   checkpoint, ``TRAIN_STEPS`` steps at batch 4 with the synthetic stem
+   generator on 2 host threads, the held-out SI-SNR on 2 pairs and a
+   checkpoint. Every loss must be finite, every parameter must move, and
+   the launches must be K1 = steps + 2 per held-out pair, K1B = steps,
+   K1W = 0 and K0 = 1. Prints the warm step time (steps 3 on), trained audio-s per
+   wall-s, the share of each step spent waiting for a batch and the peak
+   memory; profiles one more step;
+10. loads the written checkpoint through the serving ``ConvTDFBackend`` and
+    separates one window: it must equal the trained net in memory exactly;
+11. runs one float32 train step of ConvTDF-large (dim_t 32, batch 1) on the
+    card and on the CPU from the same weights and batch: the loss and the
+    global gradient norm within ``STEP_RTOL`` and every leaf's gradients at
+    cosine >= ``STEP_MIN_COS``;
+12. prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
-result. It needs no network and writes only under ``build/`` in the checkout.
+result. It needs no network and writes only under ``build/`` in the checkout
+(and the kernels' build directory, ``audio_cut_tpu_torch/_build/``).
 """
 
 from __future__ import annotations
@@ -52,8 +80,29 @@ ROOT = Path(__file__).resolve().parent
 SR = 44100
 SONG_S = 60.0
 CALLS = 2
-KERNEL_SOURCES = ("ola", "frame_stats")
+KERNEL_SOURCES = ("probe", "ola", "frame_stats")
 OLA_ATOL = 1e-5
+# K1W against the plain backward, per column c: |kernel - plain| <= rtol *
+# sum_{b,i} |g * frames|. Both sum the same float32 products in another order
+# (per-chunk partials, then the chunks in order, against torch's reduction),
+# which moves a sum of n terms by at most about n * 6e-8 of that scale and
+# typically sqrt(n) * 6e-8; n is at most 1024 here.
+OLA_BWD_RTOL = 1e-5
+# the training shape of ConvTDF-large at batch 4: [B, dim_t, n_fft], hop;
+# and a hop that is no multiple of 4, for the backward kernels' scalar path
+TRAIN_OLA_SHAPE = (4, 128, 6144, 1024)
+SCALAR_OLA_SHAPE = (2, 7, 90, 30)
+TRAIN_STEPS = 20
+TRAIN_BATCH = 4
+TRAIN_EVAL_PAIRS = 2
+# the card's float32 train step against the CPU's. cuDNN runs the card's
+# float32 convolutions in TF32 (torch's default, which the port leaves
+# alone): a 10-bit mantissa, about 5e-4 relative per product. Sums of many
+# such products average it down, so the loss and the global gradient norm
+# agree to about 1e-4 (held at 2e-3) and each leaf's gradient keeps its
+# direction (held at cosine 0.999), not its bits.
+STEP_RTOL = 2e-3
+STEP_MIN_COS = 0.999
 PARITY_SNR_DB = 30.0
 # (batch or None, n_frames, frame_len, hop): the serving shape first, then the
 # last group of a 60 s track (11 windows in groups of 4, 4, 3), then two others
@@ -82,6 +131,7 @@ BUNDLE_TOL = {
     "tempo_strength": (0.0, 1e-4), "vocal_energy": (1e-5, 0.0),
 }
 SPANS = ("load", "separation", "detection_bundle", "host_tail", "export")
+STEP_SPANS = ("upload", "loss", "backward", "optimizer", "metrics")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -151,16 +201,18 @@ def _event_ms(run, repeats: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 100, repeats: int = 5, warmup_s: float = 0.3) -> float:
+def device_ms(fn, iters: int = 100, repeats: int = 5, warmup_s: float = 0.3,
+              stream=None) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured in one CUDA
     graph, the replay timed with CUDA events, median of ``repeats`` over
     ``iters``. The replay launches back to back, so no host work (Python,
-    allocation, the launch call) sits between the kernels."""
+    allocation, the launch call) sits between the kernels. ``stream``: the
+    stream to capture on (an autograd backward runs on its forward's stream)."""
     import torch
 
     _warm_up(fn, warmup_s)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -203,6 +255,53 @@ def build_kernels():
     print(f"kernel build: all {len(secs)} in parallel, {time.perf_counter() - t0:.3f} s wall")
 
 
+def _rotating(tensors):
+    """A callable that returns the next of ``tensors`` on each call."""
+    it = {"k": 0}
+
+    def nxt():
+        it["k"] = (it["k"] + 1) % len(tensors)
+        return tensors[it["k"]]
+
+    return nxt
+
+
+def check_k0(torch, dev):
+    """K0: the first kernel launch of the process runs the library check
+    (K0 once, its result equal to x * 2); then K0's device time."""
+    from audio_cut_tpu_torch.ops.cuda import LIBRARY_CHECK, PROBE_SHAPE, K0, probe_cuda
+    from audio_cut_tpu_torch.ops.ola import K1, windowed_ola_cuda
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    if K0.launches or K1.launches or LIBRARY_CHECK:
+        fail("a kernel launched before the first kernel launch of the process")
+    # the first launch of any kernel: K1 on one small frame matrix
+    windowed_ola_cuda(torch.ones((2, 512), device=dev), hann_window(512, device=dev), 128)
+    torch.cuda.synchronize()
+    err = LIBRARY_CHECK.get(dev.index)
+    print(f"K0 library check at the first kernel launch: K0 launches {K0.launches}, K1 launches "
+          f"{K1.launches}, passed on cards {sorted(LIBRARY_CHECK)}, max |K0 - x * 2| = {err}")
+    if K0.launches != 1 or K1.launches != 1 or sorted(LIBRARY_CHECK) != [dev.index]:
+        fail("the first kernel launch did not run the library check (K0) exactly once")
+    if err != 0.0:
+        fail(f"K0 is off x * 2 by {err}")
+    x = torch.randn(PROBE_SHAPE, device=dev)
+    moved = 2 * x.numel() * 4
+    timing = {
+        "ms": device_ms(lambda: probe_cuda(x)),
+        "plain_ms": device_ms(lambda: x * 2.0),
+        # one PyTorch call computes x * 2: torch.mul, which is also the plain version
+        "library_ms": device_ms(lambda: torch.mul(x, 2.0)),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err,
+    }
+    print(f"K0 {PROBE_SHAPE}, device time per call (CUDA graph replay of 100 calls, median of 5): "
+          f"kernel {timing['ms']:.5f} ms, plain {timing['plain_ms']:.5f} ms, torch.mul "
+          f"{timing['library_ms']:.5f} ms; bound {timing['bound_ms']:.7f} ms ({moved} bytes at "
+          f"{HBM_BYTES_PER_S:.3e} B/s)")
+    return timing
+
+
 def check_k1(torch, dev):
     """K1 against its plain version at OLA_SHAPES; times at the serving shape."""
     import numpy as np
@@ -231,19 +330,14 @@ def check_k1(torch, dev):
             # rotate over 4 input sets (4 x 25 MB > the 50 MB L2), so every
             # launch reads its frames from device memory as the serving path does
             sets = [torch.randn(shape, device=dev) for _ in range(4)]
-            it = {"k": 0}
+            nxt = _rotating(sets)
 
-            def nxt():
-                it["k"] = (it["k"] + 1) % len(sets)
-                return sets[it["k"]]
-
-            def fold():
-                x = nxt() * window
-                return F.fold(x.transpose(1, 2), output_size=(1, total),
+            def fold(x):
+                return F.fold((x * window).transpose(1, 2), output_size=(1, total),
                               kernel_size=(1, L), stride=(1, hop))
 
-            lib = fold().reshape(batch, total)
-            ref = windowed_ola_reference(sets[it["k"]], window, hop)
+            lib = fold(sets[0]).reshape(batch, total)
+            ref = windowed_ola_reference(sets[0], window, hop)
             lib_err = float((lib - ref).abs().max())
             print(f"K1 library yardstick F.fold(frames * window): max |fold - plain| = {lib_err:.3e}")
             moved = (frames.numel() + window.numel() + batch * total) * 4
@@ -255,7 +349,7 @@ def check_k1(torch, dev):
             timing = {
                 "ms": device_ms(kernel),
                 "plain_ms": device_ms(plain),
-                "library_ms": device_ms(fold),
+                "library_ms": device_ms(lambda: fold(nxt())),
                 "bound_ms": bound,
                 "bytes": moved,
             }
@@ -267,6 +361,163 @@ def check_k1(torch, dev):
             print(f"K1 serving shape: wrapper called from Python 100 times in a row, "
                   f"{wrapper_ms:.4f} ms per call (CUDA events; includes the host's launch rate)")
     return max_err, timing
+
+
+def _fold_backward(torch, frames, window, hop, wrt):
+    """The library yardstick: autograd's backward of ``F.fold(frames *
+    window)``, the call ``check_k1`` times for the forward, with respect to
+    the inputs named in ``wrt`` ("frames", "window"). The forward runs once
+    on a side stream; ``call(g)`` is ``torch.autograd.grad`` of it for the
+    cotangent ``g``. Returns (call, stream to capture it on)."""
+    import torch.nn.functional as F
+
+    b, n, L = frames.shape
+    total = (n - 1) * hop + L
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        f = frames.detach().clone().requires_grad_("frames" in wrt)
+        w = window.detach().clone().requires_grad_("window" in wrt)
+        y = F.fold((f * w).transpose(1, 2), output_size=(1, total), kernel_size=(1, L),
+                   stride=(1, hop))
+    torch.cuda.current_stream().wait_stream(stream)
+    inputs = tuple(t for name, t in (("frames", f), ("window", w)) if name in wrt)
+
+    def call(g):
+        return torch.autograd.grad(y, inputs, grad_outputs=g.view(y.shape), retain_graph=True)
+
+    return call, stream
+
+
+def check_k1_backward(torch, dev):
+    """K1B and K1W against the plain backward at OLA_SHAPES and the training
+    shape; autograd through the iSTFT on the card against the CPU; device
+    times at the training shape: K1B alone, K1W alone, and both."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.ops.ola import (
+        K1B, K1W, ola_backward_frames_cuda, ola_backward_window_cuda,
+        windowed_ola_backward_reference)
+    from audio_cut_tpu_torch.ops.stft import frame_signal, hann_window, istft
+
+    max_err = 0.0  # K1B's (held to 0.0)
+    max_err_w = 0.0  # K1W's (held per column to OLA_BWD_RTOL)
+    for batch, n, L, hop in OLA_SHAPES + [TRAIN_OLA_SHAPE, SCALAR_OLA_SHAPE]:
+        shape = (n, L) if batch is None else (batch, n, L)
+        total = (n - 1) * hop + L
+        rng = np.random.default_rng(n + L + 1)
+        frames = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(shape[:-2] + (total,)).astype(np.float32)).to(dev)
+        window = hann_window(L, device=dev)
+        b0, w0 = K1B.launches, K1W.launches
+        got_f = ola_backward_frames_cuda(g, frames.shape, window, hop)
+        got_w = ola_backward_window_cuda(g, frames, window, hop)
+        want_f, want_w = windowed_ola_backward_reference(g, frames, window, hop)
+        g_raw = frame_signal(g, L, hop, center=False)[..., :n, :]
+        scale = (g_raw * frames).abs().sum(dim=tuple(range(g_raw.ndim - 1)))
+        torch.cuda.synchronize()
+        err_f = float((got_f - want_f).abs().max())
+        err_w = float((got_w - want_w).abs().max())
+        worst = float(((got_w - want_w).abs() / scale.clamp_min(1e-30)).max())
+        print(f"K1 backward {shape} hop {hop}: g_frames max |kernel - plain| = {err_f:.3e} "
+              f"(exact); g_window max |kernel - plain| = {err_w:.3e}, at most {worst:.3e} of "
+              f"sum |g * frames| (rtol {OLA_BWD_RTOL})")
+        if got_f.shape != want_f.shape or err_f != 0.0:
+            fail(f"K1B disagrees with the plain backward at {shape} hop {hop}: {err_f}")
+        if got_w.shape != want_w.shape or not worst <= OLA_BWD_RTOL:
+            fail(f"K1W disagrees with the plain backward at {shape} hop {hop}: {worst}")
+        if K1B.launches != b0 + 1 or K1W.launches != w0 + 1:
+            fail("the K1 backward wrappers did not count one launch each")
+        max_err = max(max_err, err_f)
+        max_err_w = max(max_err_w, err_w)
+
+    # autograd through the iSTFT on the card launches K1B (not K1W: the
+    # window is a constant) and gives the CPU's gradient
+    rng = np.random.default_rng(3)
+    spec_np = (rng.standard_normal((2, 40, 513)) + 1j * rng.standard_normal((2, 40, 513)))
+    weight_np = rng.standard_normal((2, 39 * 256)).astype(np.float32)
+    grads = {}
+    b0, w0 = K1B.launches, K1W.launches
+    for side in ("card", "cpu"):
+        d = dev if side == "card" else torch.device("cpu")
+        spec = torch.from_numpy(spec_np.astype(np.complex64)).to(d).requires_grad_(True)
+        out = istft(spec, n_fft=1024, hop=256, length=39 * 256)
+        (out * torch.from_numpy(weight_np).to(d)).sum().backward()
+        grads[side] = spec.grad.cpu()
+    err = float((grads["card"] - grads["cpu"]).abs().max())
+    ref = float(grads["cpu"].abs().max())
+    print(f"K1 backward through istft (2, 40, 513), n_fft 1024 hop 256: K1B launches "
+          f"{K1B.launches - b0}, K1W launches {K1W.launches - w0}; max |card - CPU| of the "
+          f"gradient = {err:.3e} (bound 1e-5 * max |CPU| = {1e-5 * ref:.3e})")
+    if K1B.launches - b0 != 1 or K1W.launches != w0:
+        fail("autograd through the iSTFT on the card did not launch K1B once (and K1W never)")
+    if not err <= 1e-5 * ref:
+        fail(f"the iSTFT gradient on the card disagrees with the CPU's: {err}")
+
+    # device times at the training shape; inputs rotate over > 50 MB (the L2)
+    batch, n, L, hop = TRAIN_OLA_SHAPE
+    total = (n - 1) * hop + L
+    window = hann_window(L, device=dev)
+    gs = [torch.randn((batch, total), device=dev) for _ in range(28)]        # 61 MB
+    fs = [torch.randn((batch, n, L), device=dev) for _ in range(4)]          # 50 MB + gs
+    next_g, next_f = _rotating(gs), _rotating(fs)
+    shape = (batch, n, L)
+    g_bytes, f_bytes, w_bytes = batch * total * 4, batch * n * L * 4, L * 4
+    frames_moved = g_bytes + w_bytes + f_bytes                  # read g, window; write g_frames
+    window_moved = g_bytes + f_bytes + w_bytes                  # read g, frames; write g_window
+    both_moved = g_bytes + f_bytes + w_bytes + f_bytes + w_bytes  # ... and read frames; write g_window
+
+    def plain_frames():
+        return frame_signal(next_g(), L, hop, center=False)[..., :n, :] * window
+
+    lib_frames, lib_frames_stream = _fold_backward(torch, fs[0], window, hop, ("frames",))
+    lib_window, lib_window_stream = _fold_backward(torch, fs[0], window, hop, ("window",))
+    lib_both, lib_both_stream = _fold_backward(torch, fs[0], window, hop, ("frames", "window"))
+    check = lib_both(gs[0])
+    want = windowed_ola_backward_reference(gs[0], fs[0], window, hop)
+    print(f"K1 backward library yardstick (autograd of F.fold(frames * window)): max |fold - "
+          f"plain| g_frames {float((check[0] - want[0]).abs().max()):.3e}, g_window "
+          f"{float((check[1] - want[1]).abs().max()):.3e}")
+
+    def kernel_both():
+        gg = next_g()
+        return (ola_backward_frames_cuda(gg, shape, window, hop),
+                ola_backward_window_cuda(gg, next_f(), window, hop))
+
+    timing = {
+        "ms": device_ms(lambda: ola_backward_frames_cuda(next_g(), shape, window, hop)),
+        "plain_ms": device_ms(plain_frames),
+        "library_ms": device_ms(lambda: lib_frames(next_g()), stream=lib_frames_stream),
+        "bound_ms": frames_moved / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": max_err,
+    }
+    window_timing = {
+        "ms": device_ms(lambda: ola_backward_window_cuda(next_g(), next_f(), window, hop)),
+        "plain_ms": device_ms(lambda: windowed_ola_backward_reference(
+            next_g(), next_f(), window, hop, want_frames=False)[1]),
+        "library_ms": device_ms(lambda: lib_window(next_g()), stream=lib_window_stream),
+        "bound_ms": window_moved / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": max_err_w,
+    }
+    both = {
+        "ms": device_ms(kernel_both),
+        "plain_ms": device_ms(lambda: windowed_ola_backward_reference(next_g(), next_f(), window,
+                                                                     hop)),
+        "library_ms": device_ms(lambda: lib_both(next_g()), stream=lib_both_stream),
+        "bound_ms": both_moved / HBM_BYTES_PER_S * 1e3,
+    }
+    print(f"K1 backward, training shape {shape} hop {hop}, device time per call (CUDA graph "
+          f"replay of 100 calls, median of 5): g_frames (K1B): kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, F.fold backward {timing['library_ms']:.4f} ms; bound "
+          f"{timing['bound_ms']:.5f} ms ({frames_moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
+    print(f"K1 backward, training shape: g_window (K1W, partial sums and their sum): kernels "
+          f"{window_timing['ms']:.4f} ms, plain {window_timing['plain_ms']:.4f} ms, F.fold "
+          f"backward {window_timing['library_ms']:.4f} ms; bound {window_timing['bound_ms']:.5f} "
+          f"ms ({window_moved} bytes)")
+    print(f"K1 backward, training shape: g_frames and g_window (K1B + K1W): kernels "
+          f"{both['ms']:.4f} ms, plain {both['plain_ms']:.4f} ms, F.fold backward "
+          f"{both['library_ms']:.4f} ms; bound {both['bound_ms']:.5f} ms ({both_moved} bytes)")
+    return timing, window_timing, both
 
 
 def _k2_inputs(t: int, f: int, seed: int):
@@ -301,12 +552,7 @@ def check_k2(torch, dev):
     t, f = K2_SHAPES[0]
     # rotate over 12 inputs (12 x 4.9 MB > the 50 MB L2): each launch reads
     # its spectrogram from device memory
-    sets = [torch.from_numpy(_k2_inputs(t, f, seed=100 + k)).to(dev) for k in range(12)]
-    it = {"k": 0}
-
-    def nxt():
-        it["k"] = (it["k"] + 1) % len(sets)
-        return sets[it["k"]]
+    nxt = _rotating([torch.from_numpy(_k2_inputs(t, f, seed=100 + k)).to(dev) for k in range(12)])
 
     moved = (t * f + 2 * t) * 4
     # per bin: 2 products, 2 adds, log, 2 log1p, a subtract, a max, 2 adds
@@ -370,17 +616,30 @@ def check_segments(m, out: Path, audio) -> None:
         fail("the exported segments do not splice back to the input's PCM-24 encoding")
 
 
+def reset_counts():
+    """Set every kernel's launch count to 0 and re-arm the library check, so
+    that the path driven next shows K0 as a fresh process would."""
+    from audio_cut_tpu_torch.ops.cuda import LIBRARY_CHECK, K0
+    from audio_cut_tpu_torch.ops.frame_stats import K2
+    from audio_cut_tpu_torch.ops.ola import K1, K1B, K1W
+
+    kernels = {"K0": K0, "K1": K1, "K1B": K1B, "K1W": K1W, "K2": K2}
+    for k in kernels.values():
+        k.launches = 0
+    LIBRARY_CHECK.clear()
+    return kernels
+
+
 def run_mdd(torch, dev, work: Path, audio):
     """The main path: separate_and_segment() with no mode and no device, cold
     then warm. Returns (K1 and K2 launches, the warm call's stems, manifest)."""
     from audio_cut_tpu_torch import separate_and_segment
-    from audio_cut_tpu_torch.ops.frame_stats import K2
-    from audio_cut_tpu_torch.ops.ola import K1
     from audio_cut_tpu_torch.separation import fused
 
     song = work / "song.wav"
     torch.cuda.reset_peak_memory_stats(dev)
-    K1.launches = K2.launches = 0  # the main path starts: only its launches count
+    kernels = reset_counts()  # the main path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
     with _Capture(fused) as cap:
         for call in range(CALLS):
             k1, k2 = K1.launches, K2.launches
@@ -401,7 +660,10 @@ def run_mdd(torch, dev, work: Path, audio):
             print(f"v2.2_mdd call {call}: {len(labels)} segments {labels}, cuts (samples) "
                   f"{m['cuts']['samples']}, spliced back exactly; confidence "
                   f"{m['separation']['confidence']:.4f}, guard {m['guard']['shift_stats']}")
-    launches = {"K1": K1.launches, "K2": K2.launches}
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"v2.2_mdd: launches in the two calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the two calls; expected once, at the first launch")
     print(f"v2.2_mdd: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
     return launches, cap.last, m
 
@@ -474,9 +736,8 @@ def run_separation(torch, dev, work: Path, audio):
 
     from audio_cut_tpu_torch import separate_and_segment
     from audio_cut_tpu_torch.io import read_wav, wav_info
-    from audio_cut_tpu_torch.ops.ola import K1
 
-    K1.launches = 0  # this path starts: only its launches count
+    K1 = reset_counts()["K1"]  # this path starts: only its launches count
     t0 = time.perf_counter()
     m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(work / "sep"),
                              mode="vocal_separation")
@@ -591,6 +852,200 @@ def profile_call(torch, work: Path):
               f"{', '.join(f'{ms:.4f}' for ms in per)}")
 
 
+def run_training(torch, dev, work: Path):
+    """The training slice through its entry point, with every launch count
+    set to 0 just before it. Returns (launches, the run's report, checkpoint)."""
+    import math
+    import statistics
+
+    from audio_cut_tpu_torch.models.convtdf import load_checkpoint, packaged_checkpoint_path
+    from audio_cut_tpu_torch.training import train_separator
+
+    ckpt = work / "trained.msgpack"
+    argv = ["--large", "--resume", "packaged", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--datagen-threads", "2", "--eval-pairs", str(TRAIN_EVAL_PAIRS),
+            "--checkpoint", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the training slice starts: only its launches count
+    report = {}
+    print(f"training: train_separator.main({argv})", flush=True)
+    t0 = time.perf_counter()
+    rc = train_separator.main(argv, report=report)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if rc != 0:
+        fail(f"train_separator.main returned {rc}")
+    steps = report["steps"]
+    want = {"K0": 1, "K1": TRAIN_STEPS + 2 * TRAIN_EVAL_PAIRS, "K1B": TRAIN_STEPS, "K1W": 0, "K2": 0}
+    print(f"training: {len(steps)} steps in {wall:.3f} s wall (main, with the resume, the held-out "
+          f"eval and the checkpoint); launches {launches}, expected {want}")
+    if launches != want:
+        fail(f"the training run launched {launches}, expected {want}")
+    if len(steps) != TRAIN_STEPS:
+        fail(f"{len(steps)} steps ran, expected {TRAIN_STEPS}")
+    bad = [s for s in steps
+           if not all(math.isfinite(s[k]) for k in ("loss", "spec_l1", "wave_l1", "pause_rms"))]
+    if bad:
+        fail(f"non-finite losses at steps {[s['step'] for s in bad]}")
+    print("training: losses " + ", ".join(f"{s['loss']:.4f}" for s in steps))
+    trainer = report["trainer"]
+    start = load_checkpoint(packaged_checkpoint_path())
+    trained = trainer.sep.net.state_dict()
+    moved = {k: float((trained[k].float().cpu() - start[k]).abs().max()) for k in start}
+    still = sorted(k for k, v in moved.items() if v == 0.0)
+    print(f"training: {len(moved) - len(still)} of {len(moved)} parameter leaves moved, max |step| "
+          f"{max(moved.values()):.3e}")
+    if still:
+        fail(f"parameters that did not move: {still}")
+    sep = trainer.sep
+    audio_per_step = TRAIN_BATCH * sep.window_samples / SR
+    warm = steps[2:]
+    step_ms = [s["step_s"] * 1e3 for s in warm]
+    busy = sum(s["step_s"] + s["wait_s"] for s in warm)
+    waited = sum(s["wait_s"] for s in warm)
+    q = statistics.quantiles(step_ms, n=4)
+    print(f"training: first step {steps[0]['step_s'] * 1e3:.1f} ms (waited {steps[0]['wait_s'] * 1e3:.1f} ms "
+          f"for its batch); warm steps 3-{TRAIN_STEPS}: median {statistics.median(step_ms):.2f} ms "
+          f"per step (min {min(step_ms):.2f}, quartiles {q[0]:.2f} / {q[2]:.2f}, max "
+          f"{max(step_ms):.2f}); waiting for a batch {waited / busy:.3f} of the loop "
+          f"(median wait {statistics.median(s['wait_s'] for s in warm) * 1e3:.2f} ms)")
+    print(f"training: {audio_per_step:.4f} audio-s per step (batch {TRAIN_BATCH} x {sep.window_samples} samples); "
+          f"warm steps: {audio_per_step * len(warm) / busy:.2f} trained audio-s per wall-s; "
+          f"torch.cuda.max_memory_allocated = {peak} bytes")
+    if report["eval"] is None:
+        fail("the held-out SI-SNR did not run")
+    print(f"training: held-out SI-SNR on {TRAIN_EVAL_PAIRS} pairs: convtdf {report['eval'][0]:.2f} dB, "
+          f"spectral {report['eval'][1]:.2f} dB")
+    if not (ckpt.exists() and Path(str(ckpt) + ".json").exists()):
+        fail("the checkpoint or its geometry sidecar was not written")
+    return launches, report, ckpt
+
+
+def serve_checkpoint(torch, dev, trainer, ckpt: Path, audio) -> None:
+    """The written checkpoint through the serving ConvTDFBackend separates a
+    window exactly as the trained net in memory does."""
+    from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
+    from audio_cut_tpu_torch.models.convtdf import ConvTDFBackend, ConvTDFSeparator
+
+    set_runtime_config({"enhanced_separation.convtdf.checkpoint": str(ckpt)})
+    try:
+        backend = ConvTDFBackend(SR, dev)
+    finally:
+        reset_runtime_config()
+    sep, net = backend.sep, trainer.sep.net
+    w = sep.window_samples
+    start = int(20.0 * SR)
+    x = torch.from_numpy(audio[start:start + w].copy())[None].to(dev)
+    got, _ = backend.separate_windows(x)
+    mem = ConvTDFSeparator(SR, n_fft=sep.n_fft, hop=sep.hop, dim_f=sep.dim_f, dim_t=sep.dim_t,
+                           channels=net.first.conv1.out_channels, depth=net.depth,
+                           tdf_bottleneck=net.first.tdf.fc1.out_features)
+    mem.net = net
+    want, _ = mem.separate(x, w)
+    err = float((got - want).abs().max())
+    print(f"checkpoint: the serving ConvTDFBackend from {ckpt.name} (geometry from its sidecar, "
+          f"dim_t {sep.dim_t}) on one {w}-sample window: max |served - trained net| = {err:.3e} "
+          f"(exact required)")
+    if got.shape != want.shape or err != 0.0:
+        fail(f"the written checkpoint does not serve what the trained net computes: {err}")
+
+
+def profile_step(torch, trainer) -> None:
+    """One more train step under torch.profiler: where its time goes, by the
+    trainer's spans (host time, and the card's busy time and launches in
+    the range each span's kernels cover)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_cut_tpu_torch.training.sep_data import synth_batches
+
+    mix, vocal = next(synth_batches(trainer.sep.window_samples, TRAIN_BATCH,
+                                    np.random.default_rng(99)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(mix, vocal)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = {}
+    for e in events:
+        if e.name in STEP_SPANS and e.device_type == torch.autograd.DeviceType.CPU:
+            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    print(f"profile step (one warm train step under torch.profiler): wall {wall_ms:.1f} ms; host "
+          f"spans (ms): " + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in STEP_SPANS))
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in on_card
+              if e.name in STEP_SPANS}
+    kernels = [e for e in on_card if e.name not in STEP_SPANS]
+    if not kernels:
+        print("profile step: device busy time not measured (the profiler recorded nothing on the card)")
+        return
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    print(f"profile step: card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {len(kernels)} kernels and copies on the card")
+    _print_top("step: ", kernels, 14)
+    for span, (a, b) in sorted(ranges.items(), key=lambda kv: kv[1]):
+        inside = [e for e in kernels if a <= e.time_range.start and e.time_range.end <= b]
+        busy = _union_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e3
+        print(f"profile step: span {span} on the card: {(b - a) / 1e3:.1f} ms from its first "
+              f"kernel to its last, {busy:.1f} ms busy, {len(inside)} kernels and copies")
+    for label, key in (("host-to-device copies", "Memcpy HtoD"), ("K1 forward", "windowed_ola_kernel"),
+                       ("K1B", "ola_backward_frames_kernel")):
+        per = [(e.time_range.end - e.time_range.start) / 1e3 for e in kernels if key in e.name]
+        print(f"profile step: {label}: {len(per)} events, {sum(per):.4f} ms in all "
+              f"({', '.join(f'{ms:.4f}' for ms in per[:8])})")
+
+
+def card_vs_cpu_step(torch, dev) -> None:
+    """One float32 train step of ConvTDF-large (dim_t 32, batch 1), card
+    against CPU, from the packaged weights and one synthetic pair."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.models.convtdf import (
+        ConvTDFSeparator, load_checkpoint, packaged_checkpoint_path)
+    from audio_cut_tpu_torch.ops.ola import K1B
+    from audio_cut_tpu_torch.training.sep_data import synth_pair
+    from audio_cut_tpu_torch.training.train_separator import LARGE_GEOMETRY
+    from audio_cut_tpu_torch.training.trainer import TrainConfig, make_loss_fn
+
+    state = load_checkpoint(packaged_checkpoint_path())
+    geometry = {**LARGE_GEOMETRY, "dim_t": 32}
+    sep = ConvTDFSeparator(SR, **geometry, dtype=torch.float32)
+    mix, vocal = synth_pair(np.random.default_rng(21), sep.window_samples)
+    out = {}
+    b0 = K1B.launches
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sep = ConvTDFSeparator(SR, **geometry, dtype=torch.float32)
+        sep.net.load_state_dict(state)
+        sep.to(d)
+        names, params = zip(*sep.net.named_parameters())
+        t0 = time.perf_counter()
+        loss, metrics = make_loss_fn(sep, TrainConfig())(torch.from_numpy(mix)[None].to(d),
+                                                         torch.from_numpy(vocal)[None].to(d))
+        grads = torch.autograd.grad(loss, params)
+        grads = [g.double().cpu() for g in grads]
+        out[side] = (float(loss.detach()), grads, time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    norm = {side: float(torch.sqrt(sum((g * g).sum() for g in out[side][1]))) for side in out}
+    cos = []
+    for name, a, b in zip(names, g_card, g_cpu):
+        na, nb = float(a.norm()), float(b.norm())
+        cos.append((1.0 if na == nb == 0.0 else float((a * b).sum()) / max(na * nb, 1e-300), name))
+    worst = min(cos)
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    rel_norm = abs(norm["card"] - norm["cpu"]) / norm["cpu"]
+    print(f"card vs CPU, one float32 train step of ConvTDF-large (dim_t 32, batch 1, "
+          f"{sep.window_samples} samples; K1B launches on the card {K1B.launches - b0}): loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {rel_loss:.3e}), global gradient norm "
+          f"{norm['card']:.6f} vs {norm['cpu']:.6f} (rel {rel_norm:.3e}); bounds rtol {STEP_RTOL}; "
+          f"lowest per-leaf cosine {worst[0]:.6f} ({worst[1]}; bound {STEP_MIN_COS}); median "
+          f"cosine {sorted(c for c, _ in cos)[len(cos) // 2]:.6f}; card {s_card:.2f} s, CPU {s_cpu:.2f} s")
+    if K1B.launches - b0 != 1:
+        fail("the card's train step did not launch K1B once")
+    if not (rel_loss <= STEP_RTOL and rel_norm <= STEP_RTOL and worst[0] >= STEP_MIN_COS):
+        fail("the card's float32 train step disagrees with the CPU's")
+
+
 def main() -> int:
     if not (ROOT / "audio_cut_tpu_torch").is_dir():
         print("chip_smoke: audio_cut_tpu_torch is not beside this script", file=sys.stderr)
@@ -607,7 +1062,9 @@ def main() -> int:
           f"device {name}, count {torch.cuda.device_count()}")
 
     build_kernels()
+    k0_timing = check_k0(torch, dev)
     k1_err, k1_timing = check_k1(torch, dev)
+    k1b_timing, k1w_timing, _ = check_k1_backward(torch, dev)
     k2_err, k2_timing = check_k2(torch, dev)
 
     from audio_cut_tpu_torch.io import write_wav
@@ -624,21 +1081,67 @@ def main() -> int:
         run_separation(torch, dev, work, audio)
         one_window_parity(torch, dev, audio)
         profile_call(torch, work)
+        train_launches, report, ckpt = run_training(torch, dev, work)
+        serve_checkpoint(torch, dev, report["trainer"], ckpt, audio)
+        profile_step(torch, report["trainer"])
+        del report
+        card_vs_cpu_step(torch, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # launches: each kernel's count in the training run, the slice's main
+    # path; K2, which training never runs, keeps its count from the two
+    # v2.2_mdd calls
     kernels = [{
+        "name": "K0 probe",
+        "route": "cuda",
+        "source": "audio_cut_tpu_torch/csrc/probe.cu",
+        "replaces": "audio_cut_tpu/ops/pallas/probe.py:61",
+        "launches": train_launches["K0"],
+        "max_abs_err": k0_timing["max_abs_err"],
+        "ms": k0_timing["ms"],
+        "plain_ms": k0_timing["plain_ms"],
+        "bound_ms": k0_timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k0_timing["library_ms"],
+    }, {
         "name": "K1 windowed_ola",
         "route": "cuda",
         "source": "audio_cut_tpu_torch/csrc/ola.cu",
         "replaces": "audio_cut_tpu/ops/pallas/ola.py:63",
-        "launches": launches["K1"],
+        "launches": train_launches["K1"],
         "max_abs_err": k1_err,
         "ms": k1_timing["ms"],
         "plain_ms": k1_timing["plain_ms"],
         "bound_ms": k1_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k1_timing["library_ms"],
+    }, {
+        "name": "K1 backward (g_frames) ola_backward_frames",
+        "route": "cuda",
+        "source": "audio_cut_tpu_torch/csrc/ola.cu",
+        "replaces": "audio_cut_tpu/ops/pallas/ola.py:77",
+        "launches": train_launches["K1B"],
+        "max_abs_err": k1b_timing["max_abs_err"],
+        "ms": k1b_timing["ms"],
+        "plain_ms": k1b_timing["plain_ms"],
+        "bound_ms": k1b_timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k1b_timing["library_ms"],
+    }, {
+        # one launch is one call of K1W's C function: the partial sums and
+        # their sum in order, two kernels, timed together
+        "name": "K1 backward (g_window) ola_backward_window",
+        "route": "cuda",
+        "source": "audio_cut_tpu_torch/csrc/ola.cu",
+        "replaces": "audio_cut_tpu/ops/pallas/ola.py:77",
+        "launches": train_launches["K1W"],
+        "max_abs_err": k1w_timing["max_abs_err"],
+        "ms": k1w_timing["ms"],
+        "plain_ms": k1w_timing["plain_ms"],
+        "bound_ms": k1w_timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k1w_timing["library_ms"],
     }, {
         "name": "K2 spectral_stats",
         "route": "cuda",

@@ -8,6 +8,11 @@ package holds its Pallas kernel to); both sum the same products in the same
 order, so they agree to the bit in practice. K2 is held against its plain
 version at rtol 2e-4 / atol 2e-5, the JAX package's bound for its own
 kernel: the same transcendentals, summed over the bins in another order.
+K1's backward: the frames' gradient (K1B) is one product per element and is
+held exactly; the window's (K1W) sums B*N products per column in another
+order than torch's reduction, held per column at 1e-5 of the sum of |terms|
+(reordering moves a float32 sum of n terms by at most about n * 6e-8 of
+it). K0, the library check, is x * 2 and is held exactly.
 """
 
 import numpy as np
@@ -92,3 +97,104 @@ def test_k2_rejects_what_it_does_not_take(cuda):
         spectral_stats(torch.ones((33, 4), device=cuda).t())
     with pytest.raises(ValueError):
         spectral_stats(torch.ones((2, 4, 33), device=cuda))
+
+
+@pytest.mark.parametrize("batch, n, L, hop", [
+    (4, 128, 6144, 1024),  # the training shape of ConvTDF-large at batch 4
+    (4, 256, 6144, 1024),
+    (None, 21, 512, 128),
+    (3, 13, 256, 64),
+    (2, 7, 90, 30),        # hop not a multiple of 4: the scalar path
+])
+def test_k1_backward_matches_plain_version(cuda, batch, n, L, hop):
+    from audio_cut_tpu_torch.ops.ola import (
+        K1B, K1W, ola_backward_frames_cuda, ola_backward_window_cuda,
+        windowed_ola_backward_reference)
+    from audio_cut_tpu_torch.ops.stft import frame_signal, hann_window
+
+    shape = (n, L) if batch is None else (batch, n, L)
+    rng = np.random.default_rng(n + L)
+    frames = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(
+        shape[:-2] + ((n - 1) * hop + L,)).astype(np.float32)).to(cuda)
+    window = hann_window(L, device=cuda)
+    b0, w0 = K1B.launches, K1W.launches
+    got_f = ola_backward_frames_cuda(g, frames.shape, window, hop)
+    got_w = ola_backward_window_cuda(g, frames, window, hop)
+    want_f, want_w = windowed_ola_backward_reference(g, frames, window, hop)
+    raw = frame_signal(g, L, hop, center=False)[..., :n, :]
+    scale = (raw * frames).abs().sum(dim=tuple(range(raw.ndim - 1)))
+    torch.cuda.synchronize()
+    assert (K1B.launches, K1W.launches) == (b0 + 1, w0 + 1)
+    assert torch.equal(got_f, want_f)
+    assert got_w.shape == (L,)
+    assert bool(((got_w - want_w).abs() <= 1e-5 * scale).all())
+
+
+def test_autograd_through_istft_launches_k1_backward(cuda):
+    """A loss through the card's iSTFT gets its gradient through K1B (the
+    window is a constant: K1W never launches), equal to the CPU's within
+    1e-5 * max |CPU| (cuFFT against the CPU's FFT)."""
+    from audio_cut_tpu_torch.ops.ola import K1, K1B, K1W
+    from audio_cut_tpu_torch.ops.stft import istft
+
+    rng = np.random.default_rng(3)
+    spec = (rng.standard_normal((2, 40, 513))
+            + 1j * rng.standard_normal((2, 40, 513))).astype(np.complex64)
+    weight = rng.standard_normal((2, 39 * 256)).astype(np.float32)
+    grads = {}
+    counts = (K1.launches, K1B.launches, K1W.launches)
+    for d in (cuda, torch.device("cpu")):
+        s = torch.from_numpy(spec).to(d).requires_grad_(True)
+        (istft(s, 1024, 256, length=39 * 256) * torch.from_numpy(weight).to(d)).sum().backward()
+        grads[d.type] = s.grad.cpu()
+    assert (K1.launches, K1B.launches, K1W.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    ref = grads["cpu"]
+    assert float((grads["cuda"] - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_inference_keeps_one_k1_launch_and_saves_nothing(cuda):
+    from audio_cut_tpu_torch.ops.ola import K1, K1B, windowed_ola
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    frames = torch.randn((4, 16, 2048), device=cuda, requires_grad=True)
+    counts = (K1.launches, K1B.launches)
+    with torch.inference_mode():
+        out = windowed_ola(frames, hann_window(2048, device=cuda), 512)
+    assert out.grad_fn is None
+    assert (K1.launches, K1B.launches) == (counts[0] + 1, counts[1])
+
+
+def test_k0_library_check_and_probe(cuda):
+    from audio_cut_tpu_torch.ops.cuda import (
+        LIBRARY_CHECK, PROBE_SHAPE, K0, check_kernel_library, probe_cuda, probe_reference)
+
+    before = K0.launches
+    check_kernel_library(cuda)
+    assert K0.launches == before + 1
+    assert LIBRARY_CHECK[cuda.index] == 0.0
+    x = torch.randn(PROBE_SHAPE, device=cuda)
+    assert torch.equal(probe_cuda(x), probe_reference(x))
+    with pytest.raises(ValueError):
+        probe_cuda(x.double())
+
+
+def test_first_launch_of_a_process_runs_the_library_check(cuda):
+    """In a fresh process, the first launch of any kernel launches K0 first."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from audio_cut_tpu_torch.ops.cuda import K0, LIBRARY_CHECK\n"
+        "from audio_cut_tpu_torch.ops.frame_stats import K2, spectral_stats\n"
+        "assert K0.launches == 0 and not LIBRARY_CHECK\n"
+        "spectral_stats(torch.ones((3, 33), device='cuda'))\n"
+        "torch.cuda.synchronize()\n"
+        "print(K0.launches, K2.launches, LIBRARY_CHECK == {0: 0.0})\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "1", "True"]

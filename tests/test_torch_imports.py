@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no jax/flax/yaml/msgpack and nothing of
-audio_cut_tpu in its imports, CUDA by default, and its config defaults equal
-the JAX package's YAML apart from the device."""
+"""The PyTorch port stands alone: no jax/flax/optax/orbax/yaml/msgpack and
+nothing of audio_cut_tpu in its imports, CUDA by default, and its config
+defaults equal the JAX package's YAML apart from the device."""
 
 import ast
 import json
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "audio_cut_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "msgpack", "audio_cut_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "msgpack", "audio_cut_tpu")
 
 
 def _port_files():
@@ -73,6 +73,40 @@ def test_entry_point_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
         separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
                              mode="vocal_separation", device="cuda")
     assert not (tmp_path / "out").exists()
+
+
+def test_trainer_entry_point_raises_without_cuda_unless_cpu(monkeypatch):
+    import torch
+
+    from audio_cut_tpu_torch.training.train_separator import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--small", "--synthetic", "--steps", "1", *argv])
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--family", "waveunet"], "Other separator tiers"),
+    (["--large", "--rich"], "queue 1, 'Training'"),
+])
+def test_trainer_options_outside_the_slice_raise(argv, item):
+    from audio_cut_tpu_torch.training.train_separator import main
+
+    with pytest.raises(NotImplementedError, match=item):
+        main([*argv, "--steps", "1", "--device", "cpu"])
+
+
+def test_sharded_training_raises():
+    from audio_cut_tpu_torch.models.convtdf import ConvTDFSeparator
+    from audio_cut_tpu_torch.training.trainer import TrainConfig, Trainer, make_loss_fn
+
+    sep = ConvTDFSeparator(44100, n_fft=512, hop=128, dim_f=128, dim_t=8, channels=8, depth=1,
+                           tdf_bottleneck=8)
+    with pytest.raises(NotImplementedError, match="Scale-out and shell"):
+        Trainer(sep, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Scale-out and shell"):
+        make_loss_fn(sep, TrainConfig(), mesh=object())
 
 
 @pytest.mark.parametrize("mode, item", [
