@@ -1,12 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function and is compiled on
-first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
-into ``audio_cut_tpu_torch/_build/`` (listed in ``.gitignore``), then loaded
-with ``ctypes``. The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one never loaded. Nothing is compiled or
-loaded when a module is imported: the CPU tests import every module, and the
-CPU has no ``nvcc``.
+first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xptxas -v`` into ``audio_cut_tpu_torch/_build/`` (listed in ``.gitignore``),
+then loaded with ``ctypes``; nvcc's output, with ptxas's report of each
+kernel's registers and spills, is kept in ``BUILD_LOGS``. The library's file
+name carries a hash of its source, so an edited kernel is rebuilt and a stale
+one never loaded. nvcc writes to a name of its own process and thread, which
+is then renamed onto the library's (``os.replace``): a library on disk is
+always a whole file, and builds of one source in several threads or processes
+at once all succeed. Nothing is compiled or loaded when a module is imported:
+the CPU tests import every module, and the CPU has no ``nvcc``.
 
 A ``CudaKernel`` counts its launches in a plain integer (``launches``); a run
 resets it to 0 to show that its path went through the kernel.
@@ -31,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
@@ -41,7 +46,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# source name -> nvcc's output of the build this process made
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -67,19 +74,29 @@ def _nvcc_command(source: Path, target: Path) -> List[str]:
 def build_library(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
     seconds the build took (0.0 for one already built). Raises on a failed
-    build."""
+    build.
+
+    nvcc writes ``<stem>-<digest>.<pid>.<thread>.tmp.so``, which is renamed
+    onto the library when nvcc succeeds and removed when it fails. The
+    library itself is never written in place nor removed: another process
+    may have it loaded, or may have just finished it."""
     source = CSRC / f"{name}.cu"
     target = _library_path(source)
     if target.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(_nvcc_command(source, target), stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT)
-    if proc.returncode != 0:
-        target.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed: {name}.cu: nvcc exit {proc.returncode}\n"
-                           f"{proc.stdout.decode(errors='replace')}")
+    try:
+        proc = subprocess.run(_nvcc_command(source, tmp), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build failed: {name}.cu: nvcc exit {proc.returncode}\n"
+                               f"{proc.stdout.decode(errors='replace')}")
+        os.replace(tmp, target)
+        BUILD_LOGS[name] = proc.stdout.decode(errors="replace")
+    finally:
+        tmp.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

@@ -6,9 +6,11 @@
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. builds every CUDA kernel of the port from ``audio_cut_tpu_torch/csrc`` with
    nvcc, one process per source, all started together, and prints each
-   build's time; checks that the first kernel launch of the process ran the
-   library check, K0 (``csrc/probe.cu``), exactly once, with a result equal to
-   x * 2, and times K0;
+   build's time and, from the same builds' ``-Xptxas -v`` report, each
+   kernel's registers and spills; checks that the
+   first kernel launch of the process ran the library check, K0
+   (``csrc/probe.cu``), exactly once, with a result equal to x * 2, and
+   times K0 and ``torch.mul`` in turns (mul, K0, K0, mul);
 3. holds kernel K1 (windowed overlap-add, ``csrc/ola.cu``) against its plain
    PyTorch version at atol 1e-5, at both shapes the main path gives it and two
    others, and times it at the serving shape beside its plain version,
@@ -22,9 +24,11 @@
    their bounds;
 4. holds kernel K2 (spectral flatness and onset, ``csrc/frame_stats.cu``)
    against its plain version at rtol 2e-4 / atol 2e-5, at the feature grids of
-   a 60 s and a 3-minute song and two edge shapes, and times it at the 60 s
-   shape beside its plain version and its bound. Device times come from a
-   CUDA graph replay; the wrapper's time per call from Python is printed apart;
+   a 60 s and a 3-minute song, edge shapes (``K2_SHAPES``) and a
+   spectrogram that starts off a 16 B boundary, and times it at the 60 s
+   shape beside its plain version and its bound.
+   Device times come from a CUDA graph replay; the wrapper's time per call
+   from Python is printed apart;
 5. drives the main path: ``separate_and_segment()`` with no mode (v2.2_mdd)
    and no device, with the packaged ConvTDF-large and ConvVAD, on a
    synthesized 60 s song, cold then warm. Each call must succeed, give >= 2
@@ -108,8 +112,13 @@ PARITY_SNR_DB = 30.0
 # last group of a 60 s track (11 windows in groups of 4, 4, 3), then two others
 OLA_SHAPES = [(4, 256, 6144, 1024), (3, 256, 6144, 1024), (None, 21, 512, 128), (3, 13, 256, 64)]
 # (frames, bins): the feature grid of a 60 s song first (n_fft 2048, hop 2205),
-# then of a 3-minute song, the JAX package's edge shape and a single frame
-K2_SHAPES = [(1201, 1025), (3601, 1025), (257, 129), (1, 1025)]
+# then of a 3-minute song, the JAX package's edge shape and a single frame;
+# then edges: one more frame than an H100 has SMs (133) and fewer (50),
+# 1024 bins (every row 16 B aligned, each thread 4 bins), rows narrower than
+# a warp (3 bins, 1 bin)
+K2_SHAPES = [(1201, 1025), (3601, 1025), (257, 129), (1, 1025),
+             (133, 1025), (50, 1025), (300, 1024), (77, 3), (64, 1)]
+K0_TURNS = 12  # rounds of (torch.mul, K0, K0, torch.mul), one timed graph replay each
 K2_RTOL, K2_ATOL = 2e-4, 2e-5
 # the card's bundle against the CPU's, (rtol, atol) per output:
 # * RMS envelopes: sums of squares scanned in other orders, rtol 1e-5;
@@ -201,6 +210,19 @@ def _event_ms(run, repeats: int) -> float:
     return statistics.median(times)
 
 
+def _graph(fn, iters: int, stream=None):
+    """``iters`` calls of ``fn`` captured in one CUDA graph, replayed once."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
 def device_ms(fn, iters: int = 100, repeats: int = 5, warmup_s: float = 0.3,
               stream=None) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured in one CUDA
@@ -208,16 +230,8 @@ def device_ms(fn, iters: int = 100, repeats: int = 5, warmup_s: float = 0.3,
     ``iters``. The replay launches back to back, so no host work (Python,
     allocation, the launch call) sits between the kernels. ``stream``: the
     stream to capture on (an autograd backward runs on its forward's stream)."""
-    import torch
-
     _warm_up(fn, warmup_s)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return _event_ms(graph.replay, repeats) / iters
+    return _event_ms(_graph(fn, iters, stream).replay, repeats) / iters
 
 
 def call_ms(fn, iters: int = 100, repeats: int = 5, warmup_s: float = 0.3) -> float:
@@ -240,12 +254,37 @@ def snr_db(ref, est) -> float:
     return float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - est) ** 2), 1e-30)))
 
 
+def ptxas_lines(log: str) -> list:
+    """Each kernel's registers and spills from ptxas's ``-v`` report in a
+    build's nvcc output, its name demangled with ``cu++filt``."""
+    import re
+
+    from audio_cut_tpu_torch.ops.cuda import find_nvcc
+
+    kernels, name, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and name is not None:
+            kernels.append((name, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            name = None
+    cufilt = Path(find_nvcc()).parent / "cu++filt"
+    if kernels and cufilt.exists():
+        names = subprocess.run([str(cufilt)], input="\n".join(k for k, _ in kernels),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        kernels = [(d or k, r) for (k, r), d in zip(kernels, names)]
+    return [f"{k}: {r}" for k, r in kernels]
+
+
 def build_kernels():
     """Build every csrc/*.cu with nvcc, one process per source, all started
-    together; print each build's time."""
+    together; print each build's time and each kernel's registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from audio_cut_tpu_torch.ops.cuda import build_library
+    from audio_cut_tpu_torch.ops.cuda import BUILD_LOGS, build_library
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
@@ -253,6 +292,9 @@ def build_kernels():
     for name, sec in zip(KERNEL_SOURCES, secs):
         print(f"kernel build: {name}.cu {sec:.3f} s (nvcc, sm_90a)")
     print(f"kernel build: all {len(secs)} in parallel, {time.perf_counter() - t0:.3f} s wall")
+    for name in KERNEL_SOURCES:
+        for line in ptxas_lines(BUILD_LOGS.get(name, "")):
+            print(f"ptxas {name}.cu: {line}")
 
 
 def _rotating(tensors):
@@ -268,7 +310,10 @@ def _rotating(tensors):
 
 def check_k0(torch, dev):
     """K0: the first kernel launch of the process runs the library check
-    (K0 once, its result equal to x * 2); then K0's device time."""
+    (K0 once, its result equal to x * 2); then K0's device time, in turns
+    with torch.mul's."""
+    import statistics
+
     from audio_cut_tpu_torch.ops.cuda import LIBRARY_CHECK, PROBE_SHAPE, K0, probe_cuda
     from audio_cut_tpu_torch.ops.ola import K1, windowed_ola_cuda
     from audio_cut_tpu_torch.ops.stft import hann_window
@@ -287,18 +332,31 @@ def check_k0(torch, dev):
         fail(f"K0 is off x * 2 by {err}")
     x = torch.randn(PROBE_SHAPE, device=dev)
     moved = 2 * x.numel() * 4
+    # K0 and the one PyTorch call that computes x * 2, torch.mul, in turns:
+    # each a graph of 100 calls, replayed mul, K0, K0, mul, K0_TURNS times
+    kernel, mul = (lambda: probe_cuda(x)), (lambda: torch.mul(x, 2.0))
+    _warm_up(lambda: (kernel(), mul()), 0.3)
+    graphs = {"K0": _graph(kernel, 100), "torch.mul": _graph(mul, 100)}
+    times = {"K0": [], "torch.mul": []}
+    for _ in range(K0_TURNS):
+        for key in ("torch.mul", "K0", "K0", "torch.mul"):
+            times[key].append(_event_ms(graphs[key].replay, 1) / 100)
     timing = {
-        "ms": device_ms(lambda: probe_cuda(x)),
+        "ms": statistics.median(times["K0"]),
         "plain_ms": device_ms(lambda: x * 2.0),
-        # one PyTorch call computes x * 2: torch.mul, which is also the plain version
-        "library_ms": device_ms(lambda: torch.mul(x, 2.0)),
+        "library_ms": statistics.median(times["torch.mul"]),
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "max_abs_err": err,
     }
-    print(f"K0 {PROBE_SHAPE}, device time per call (CUDA graph replay of 100 calls, median of 5): "
-          f"kernel {timing['ms']:.5f} ms, plain {timing['plain_ms']:.5f} ms, torch.mul "
-          f"{timing['library_ms']:.5f} ms; bound {timing['bound_ms']:.7f} ms ({moved} bytes at "
-          f"{HBM_BYTES_PER_S:.3e} B/s)")
+    for key, ts in times.items():
+        q = statistics.quantiles(ts, n=4)
+        print(f"K0 {PROBE_SHAPE} in turns with torch.mul: {key} median {statistics.median(ts):.5f} "
+              f"ms, quartiles {q[0]:.5f}-{q[2]:.5f}, range {min(ts):.5f}-{max(ts):.5f} ms "
+              f"({len(ts)} replays of 100 calls)")
+    print(f"K0 {PROBE_SHAPE}, device time per call: kernel {timing['ms']:.5f} ms, torch.mul "
+          f"{timing['library_ms']:.5f} ms (medians in turns), plain x * 2.0 {timing['plain_ms']:.5f} "
+          f"ms (CUDA graph replay of 100 calls, median of 5); bound {timing['bound_ms']:.7f} ms "
+          f"({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
     return timing
 
 
@@ -529,7 +587,8 @@ def _k2_inputs(t: int, f: int, seed: int):
 
 
 def check_k2(torch, dev):
-    """K2 against its plain version at K2_SHAPES; device times at the 60 s shape."""
+    """K2 against its plain version at K2_SHAPES and on a view off 16 B
+    alignment; device times at the 60 s shape."""
     from audio_cut_tpu_torch.ops.frame_stats import spectral_stats_cuda, spectral_stats_reference
 
     max_err = 0.0
@@ -548,8 +607,21 @@ def check_k2(torch, dev):
             max_err = max(max_err, err)
         if float(got[1][0]) != 0.0:
             fail("K2 onset of frame 0 is not 0")
-
+    # the 60 s grid starting 4 B past a 16 B boundary: every row's alignment shifts by one
     t, f = K2_SHAPES[0]
+    padded = torch.empty(t * f + 1, device=dev)
+    padded[1:] = torch.from_numpy(_k2_inputs(t, f, seed=5)).to(dev).reshape(-1)
+    mag = padded[1:].view(t, f)
+    got, want = spectral_stats_cuda(mag), spectral_stats_reference(mag)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("flatness", "onset"), got, want):
+        err = float((g - w).abs().max())
+        print(f"K2 ({t}, {f}) from a view 4 B off 16 B alignment, {name}: max |kernel - plain| = "
+              f"{err:.3e}")
+        if bool(((g - w).abs() > K2_ATOL + K2_RTOL * w.abs()).any()) or float(got[1][0]) != 0.0:
+            fail(f"K2 disagrees with its plain version on an unaligned view in {name}: {err}")
+        max_err = max(max_err, err)
+
     # rotate over 12 inputs (12 x 4.9 MB > the 50 MB L2): each launch reads
     # its spectrogram from device memory
     nxt = _rotating([torch.from_numpy(_k2_inputs(t, f, seed=100 + k)).to(dev) for k in range(12)])

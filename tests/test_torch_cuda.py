@@ -70,6 +70,11 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     (3601, 1025),  # and of a 3-minute song
     (257, 129),    # the JAX package's edge shape
     (1, 1025),     # one frame: onset 0
+    (133, 1025),   # one more frame than an H100 has SMs
+    (50, 1025),    # fewer frames than SMs
+    (300, 1024),   # every row 16 B aligned
+    (77, 3),       # rows narrower than a warp
+    (64, 1),       # one bin
 ])
 def test_k2_matches_plain_version(cuda, t, f):
     from audio_cut_tpu_torch.ops.frame_stats import K2, spectral_stats, spectral_stats_reference
@@ -83,6 +88,24 @@ def test_k2_matches_plain_version(cuda, t, f):
     torch.cuda.synchronize()
     assert K2.launches == before + 1
     assert flat.shape == onset.shape == (t,)
+    torch.testing.assert_close(flat, want_flat, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(onset, want_onset, rtol=2e-4, atol=2e-5)
+    assert float(onset[0]) == 0.0
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k2_takes_a_spectrogram_off_16_byte_alignment(cuda, offset):
+    """A contiguous view that starts `offset` floats past a 16 B boundary."""
+    from audio_cut_tpu_torch.ops.frame_stats import spectral_stats, spectral_stats_reference
+
+    t, f = 1201, 1025
+    mag = np.abs(np.random.default_rng(offset).standard_normal((t, f))).astype(np.float32)
+    padded = torch.zeros(t * f + offset, device=cuda)
+    padded[offset:] = torch.from_numpy(mag).to(cuda).reshape(-1)
+    x = padded[offset:].view(t, f)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    flat, onset = spectral_stats(x)
+    want_flat, want_onset = spectral_stats_reference(x)
     torch.testing.assert_close(flat, want_flat, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(onset, want_onset, rtol=2e-4, atol=2e-5)
     assert float(onset[0]) == 0.0
@@ -175,6 +198,11 @@ def test_k0_library_check_and_probe(cuda):
     assert LIBRARY_CHECK[cuda.index] == 0.0
     x = torch.randn(PROBE_SHAPE, device=cuda)
     assert torch.equal(probe_cuda(x), probe_reference(x))
+    # n that is no multiple of 4, and views that start off a 16 B boundary
+    for n, offset in ((1023, 0), (5, 0), (3, 0), (300_001, 0), (1024, 1), (1023, 3), (7, 2)):
+        v = torch.randn(n + offset, device=cuda)[offset:]
+        assert v.data_ptr() % 16 == 4 * offset
+        assert torch.equal(probe_cuda(v), probe_reference(v))
     with pytest.raises(ValueError):
         probe_cuda(x.double())
 
