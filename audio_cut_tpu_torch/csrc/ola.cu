@@ -40,15 +40,40 @@
 // (the training path), else as 4 scalars. g_frames: one block per (row
 // b * N + i, tile of 1024 columns); the read of g[b, i*hop + c ..] and the
 // write of the frame row are contiguous runs. It is one rounded product per
-// element, so it equals the plain version exactly. g_window is a reduction
-// over all B*N rows: each block owns a tile of 1024 columns and a chunk of
-// rows, sums its rows in registers (loads coalesced along c) and writes one
-// row of partial sums; a second kernel adds the partial rows per column in
-// chunk order. The result is deterministic (no float atomics); it differs from the
-// plain version only in the order of the sums. The g_window kernels launch
+// element, so it equals the plain version exactly.
+//
+// g_window is a reduction over all B*N rows, in one launch with no global
+// scratch and no float atomics. The grid is column tiles x row ranks; the
+// ranks of one tile form a thread-block cluster (at most 8 blocks, the
+// portable size). A block is column lanes (4 columns each) x row lanes; the
+// tile's ranks x row lanes are its lanes q, and lane q sums rows
+// [q * rows_per_lane, (q + 1) * rows_per_lane) in registers, in row order,
+// with the loads of kRowsInFlight rows issued before the first FMA that uses
+// them. The row lanes of a block add up in shared memory in lane order. Each
+// rank owns a slice of the tile's column lanes: every rank stores its partial
+// row's lanes straight into their owner's shared memory (st.async through
+// distributed shared memory), and each owner waits on an mbarrier in its own
+// shared memory for the bytes of every rank, adds them rank 0 first and
+// writes g_window. A rank so waits only for the data it needs, and no block
+// reads another's shared memory after a barrier, so none is needed at the
+// end: the one cluster barrier, split in two, only makes every block's
+// mbarrier ready before a peer stores to it, and its wait comes after the
+// rows, when every peer has long arrived. Each step issues its loads together
+// and only then adds in order. Every wait is bounded: past kMaxSpins tries
+// the kernel traps rather than hang the card. A trap ends the process's CUDA
+// context: it shows as a CUDA error, and every later CUDA call of the process
+// fails, so it is a fault to find, not one to recover from.
+// The order of the sums depends only on the plan (tile width, row lanes,
+// cluster size, rows per lane: ops/ola.py:window_plan), so two launches give
+// the same bits; the result differs from the plain version only in that
+// order. A lane or a rank may have no rows. The g_window kernel launches
 // only where the window needs a gradient, which training never asks for.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -128,50 +153,166 @@ __global__ void ola_backward_frames_kernel(const float* __restrict__ g,
     }
 }
 
-template <bool VEC>
-__global__ void ola_backward_window_partial_kernel(const float* __restrict__ g,
-                                                   const float* __restrict__ frames,
-                                                   float* __restrict__ partial,
-                                                   int n_frames, int frame_len, int hop,
-                                                   int rows, int rows_per_chunk) {
-    const int c = (blockIdx.x * blockDim.x + threadIdx.x) * kCols;
-    if (c >= frame_len) {
-        return;
-    }
-    const long long total = (long long)(n_frames - 1) * hop + frame_len;
-    const int r0 = blockIdx.y * rows_per_chunk;
-    const int r1 = min(rows, r0 + rows_per_chunk);
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-    for (int r = r0; r < r1; ++r) {
-        const int b = r / n_frames;
-        const int i = r - b * n_frames;
-        const float4 gv = load4<VEC>(g + (long long)b * total + (long long)i * hop, c, frame_len);
-        const float4 fv = load4<VEC>(frames + (long long)r * frame_len, c, frame_len);
-        acc.x = fmaf(gv.x, fv.x, acc.x);
-        acc.y = fmaf(gv.y, fv.y, acc.y);
-        acc.z = fmaf(gv.z, fv.z, acc.z);
-        acc.w = fmaf(gv.w, fv.w, acc.w);
-    }
-    float* out = partial + (long long)blockIdx.y * frame_len;
-    const float vals[kCols] = {acc.x, acc.y, acc.z, acc.w};
-    for (int k = 0; k < kCols && c + k < frame_len; ++k) {
-        out[c + k] = vals[k];
-    }
+// K1W's limits; the plan (ops/ola.py:window_plan) keeps within them
+constexpr int kWindowThreads = 256;   // column lanes x row lanes of a block
+constexpr int kWindowMaxCluster = 8;  // the portable cluster size
+constexpr int kRowsInFlight = 4;      // rows whose loads a thread issues together
+constexpr int kLanesInFlight = 8;     // row lanes whose partials a thread loads together
+constexpr int kMaxSpins = 1 << 20;    // tries of the mbarrier before the kernel traps
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 acc) {
+    return make_float4(fmaf(a.x, b.x, acc.x), fmaf(a.y, b.y, acc.y), fmaf(a.z, b.z, acc.z),
+                       fmaf(a.w, b.w, acc.w));
 }
 
-__global__ void ola_backward_window_sum_kernel(const float* __restrict__ partial,
-                                               float* __restrict__ g_window,
-                                               int frame_len, int n_chunks) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= frame_len) {
-        return;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the address in block `rank` of the cluster of this block's shared address `addr`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+    uint32_t out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kWindowThreads)
+ola_backward_window_kernel(const float* __restrict__ g, const float* __restrict__ frames,
+                           float* __restrict__ g_window, int n_frames, int frame_len, int hop,
+                           int rows, int tile_cols, int ranks, int rows_per_lane) {
+    __shared__ float4 part[kWindowThreads];                         // one per thread
+    __shared__ float4 incoming[kWindowThreads + kWindowMaxCluster];  // [rank][slice lane]
+    __shared__ alignas(8) unsigned long long arrived;               // mbarrier of `incoming`
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const uint32_t arrived_addr = shared_addr(&arrived);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(arrived_addr) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    float acc = 0.0f;
-    for (int k = 0; k < n_chunks; ++k) {  // fixed order: deterministic
-        acc += partial[(long long)k * frame_len + c];
+    // every block's mbarrier is set before any peer stores to it: arrive
+    // now, wait after the rows
+    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+
+    const int tile = blockIdx.x / ranks;
+    const int col_lanes = tile_cols / kCols;
+    const int col_lane = threadIdx.x % col_lanes;
+    const int row_lane = threadIdx.x / col_lanes;
+    const int row_lanes = blockDim.x / col_lanes;
+    const int c = tile * tile_cols + col_lane * kCols;
+
+    const long long q = (long long)rank * row_lanes + row_lane;
+    const int r0 = (int)min((long long)rows, q * rows_per_lane);
+    const int r1 = (int)min((long long)rows, (q + 1) * rows_per_lane);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < frame_len) {
+        const long long total = (long long)(n_frames - 1) * hop + frame_len;
+        int i = r0 % n_frames;
+        const float* gp = g + (long long)(r0 / n_frames) * total + (long long)i * hop;
+        const float* fp = frames + (long long)r0 * frame_len;
+        for (int r = r0; r < r1; r += kRowsInFlight) {
+            const int count = min(kRowsInFlight, r1 - r);
+            float4 gv[kRowsInFlight], fv[kRowsInFlight];
+#pragma unroll
+            for (int k = 0; k < kRowsInFlight; ++k) {
+                if (k < count) {
+                    gv[k] = load4<VEC>(gp, c, frame_len);
+                    fv[k] = load4<VEC>(fp, c, frame_len);
+                    fp += frame_len;
+                    gp += hop;
+                    if (++i == n_frames) {  // the next batch row of g
+                        i = 0;
+                        gp += frame_len - hop;
+                    }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < kRowsInFlight; ++k) {
+                if (k < count) {
+                    acc = fma4(gv[k], fv[k], acc);
+                }
+            }
+        }
     }
-    g_window[c] = acc;
+
+    // the block's row lanes, in lane order
+    part[threadIdx.x] = acc;  // threadIdx.x == row_lane * col_lanes + col_lane
+    __syncthreads();
+    asm volatile("barrier.cluster.wait;" ::: "memory");
+    const int slice = (col_lanes + ranks - 1) / ranks;  // column lanes each rank owns
+    if (row_lane == 0) {
+        for (int l0 = 1; l0 < row_lanes; l0 += kLanesInFlight) {
+            float4 v[kLanesInFlight];
+#pragma unroll
+            for (int k = 0; k < kLanesInFlight; ++k) {
+                if (l0 + k < row_lanes) {
+                    v[k] = part[(l0 + k) * col_lanes + col_lane];
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < kLanesInFlight; ++k) {
+                if (l0 + k < row_lanes) {
+                    acc = add4(acc, v[k]);
+                }
+            }
+        }
+        // to the rank that owns this column lane, into its slot for this rank
+        const int owner = col_lane / slice;
+        const uint32_t dst = peer_addr(shared_addr(&incoming[rank * slice + col_lane % slice]), owner);
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+            ::"r"(dst), "f"(acc.x), "f"(acc.y), "f"(acc.z), "f"(acc.w),
+            "r"(peer_addr(arrived_addr, owner)) : "memory");
+    }
+    const int owned = max(0, min(slice, col_lanes - rank * slice));
+    if (threadIdx.x == 0) {  // the bytes every rank sends here
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     ::"r"(arrived_addr), "r"(ranks * owned * (int)sizeof(float4)) : "memory");
+    }
+    // this rank's column lanes: every rank's partial, added in rank order
+    if (threadIdx.x < owned) {
+        uint32_t done = 0;
+        for (int spin = 0; !done; ++spin) {
+            asm volatile(
+                "{\n .reg .pred p;\n"
+                " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+                " selp.u32 %0, 1, 0, p;\n}"
+                : "=r"(done) : "r"(arrived_addr) : "memory");
+            if (spin == kMaxSpins) {
+                __trap();  // a wait that could not end would hang the card
+            }
+        }
+        const int out_col = tile * tile_cols + (rank * slice + threadIdx.x) * kCols;
+        if (out_col < frame_len) {
+            float4 v[kWindowMaxCluster];
+#pragma unroll
+            for (int k = 0; k < kWindowMaxCluster; ++k) {
+                if (k < ranks) {
+                    v[k] = incoming[k * slice + threadIdx.x];
+                }
+            }
+            float4 s = v[0];
+#pragma unroll
+            for (int k = 1; k < kWindowMaxCluster; ++k) {
+                if (k < ranks) {
+                    s = add4(s, v[k]);
+                }
+            }
+            if (VEC) {
+                *reinterpret_cast<float4*>(g_window + out_col) = s;
+            } else {
+                const float vals[kCols] = {s.x, s.y, s.z, s.w};
+                for (int k = 0; k < kCols && out_col + k < frame_len; ++k) {
+                    g_window[out_col + k] = vals[k];
+                }
+            }
+        }
+    }
 }
 
 bool aligned16(const void* p) {
@@ -218,39 +359,44 @@ extern "C" int ola_backward_frames_launch(const void* g, const void* window, voi
     return (int)cudaGetLastError();
 }
 
-extern "C" int ola_backward_window_launch(const void* g, const void* frames, void* partial,
-                                          void* g_window, int batch, int n_frames,
-                                          int frame_len, int hop, int rows_per_chunk,
-                                          int n_chunks, void* stream) {
-    if (batch <= 0 || n_frames <= 0 || hop <= 0 || frame_len % hop != 0 ||
-        rows_per_chunk <= 0 || n_chunks <= 0) {
+extern "C" int ola_backward_window_launch(const void* g, const void* frames, void* g_window,
+                                          int batch, int n_frames, int frame_len, int hop,
+                                          int tile_cols, int row_lanes, int cluster,
+                                          int rows_per_lane, void* stream) {
+    if (batch <= 0 || n_frames <= 0 || hop <= 0 || frame_len % hop != 0 || tile_cols <= 0 ||
+        tile_cols % kCols != 0 || row_lanes <= 0 || cluster <= 0 ||
+        cluster > kWindowMaxCluster || rows_per_lane <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     const long long rows = (long long)batch * n_frames;
-    // the chunks must cover the rows, and each must hold at least one
-    if ((long long)n_chunks * rows_per_chunk < rows ||
-        (long long)(n_chunks - 1) * rows_per_chunk >= rows || rows > 0x7fffffffLL) {
+    const long long threads = (long long)(tile_cols / kCols) * row_lanes;
+    const long long tiles = (frame_len + (long long)tile_cols - 1) / tile_cols;
+    // the plan must fit a block, its lanes cover the rows, and the grid fit grid.x
+    if (rows > 0x7fffffffLL || threads > kWindowThreads ||
+        (long long)cluster * row_lanes * rows_per_lane < rows || tiles * cluster > 0x7fffffffLL) {
         return (int)cudaErrorInvalidValue;
     }
-    const int cols_per_block = kThreads * kCols;
-    dim3 grid((unsigned)((frame_len + cols_per_block - 1) / cols_per_block), (unsigned)n_chunks);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(tiles * cluster));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = (unsigned)cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
     const bool vec = hop % kCols == 0 && frame_len % kCols == 0 && aligned16(g) &&
-                     aligned16(frames);
-    if (vec) {
-        ola_backward_window_partial_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)g, (const float*)frames, (float*)partial, n_frames, frame_len, hop,
-            (int)rows, rows_per_chunk);
-    } else {
-        ola_backward_window_partial_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)g, (const float*)frames, (float*)partial, n_frames, frame_len, hop,
-            (int)rows, rows_per_chunk);
-    }
-    cudaError_t err = cudaGetLastError();
+                     aligned16(frames) && aligned16(g_window);
+    void (*kernel)(const float*, const float*, float*, int, int, int, int, int, int, int) =
+        vec ? ola_backward_window_kernel<true> : ola_backward_window_kernel<false>;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const float*)g, (const float*)frames,
+                                               (float*)g_window, n_frames, frame_len, hop,
+                                               (int)rows, tile_cols, cluster, rows_per_lane);
     if (err != cudaSuccess) {
+        cudaGetLastError();  // a refused launch must not stay behind as the next call's error
         return (int)err;
     }
-    ola_backward_window_sum_kernel<<<(frame_len + kThreads - 1) / kThreads, kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-        (const float*)partial, (float*)g_window, frame_len, n_chunks);
     return (int)cudaGetLastError();
 }

@@ -14,7 +14,9 @@ Where autograd needs a gradient of the result, ``windowed_ola`` goes through
 ``WindowedOLA``, a ``torch.autograd.Function``: its forward is the same
 launch, its backward the backward kernels of ``csrc/ola.cu`` on CUDA (K1B for
 the frames, K1W for the window, the latter only when the window needs a
-gradient) and ``windowed_ola_backward_reference`` on the CPU. The kernel
+gradient; one launch each) and ``windowed_ola_backward_reference`` on the
+CPU. K1W's grid comes from ``window_plan``, a pure function of the row
+count, the frame length and the card's SM count. The kernel
 writes into a fresh tensor through ``ctypes``, which autograd cannot see, so
 the Function is what ties its output to the graph. Under ``no_grad`` or
 ``inference_mode`` (the serving path) the Function is not entered and
@@ -24,7 +26,8 @@ nothing is saved.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -37,13 +40,72 @@ K1 = CudaKernel("ola", "windowed_ola_launch",
 # the frames' gradient (every training step) ...
 K1B = CudaKernel("ola", "ola_backward_frames_launch",
                  [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR])
-# ... and the window's (only where the window is trained): one C call starts
-# two kernels, the partial sums and their sum in order, and counts one launch
+# ... and the window's (only where the window is trained), one kernel that
+# reduces the rows across a thread-block cluster
 K1W = CudaKernel("ola", "ola_backward_window_launch",
-                 [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR])
+                 [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR])
 
-_MAX_GRID_Y = 65535  # K1 puts the batch, K1W the row chunk on grid.y
-_WINDOW_BLOCKS = 4 * 132  # K1W aims at 4 blocks per SM of an H100
+_MAX_GRID_Y = 65535  # K1 puts the batch on grid.y
+# K1W's plan: blocks of 256 threads (csrc/ola.cu), column tiles of 32, 16 or
+# 8 lanes of 4 columns (a warp's run of a row is 512, 256 or 128 B), clusters
+# of at most 8 blocks (the portable size), about 1.5 blocks per SM
+_WINDOW_THREADS = 256
+_WINDOW_MAX_CLUSTER = 8
+_WINDOW_BLOCKS_PER_SM = 1.5
+_WINDOW_COL_LANES = (32, 16, 8)
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """K1W's grid: ``tiles`` column tiles of ``tile_cols`` columns, each a
+    cluster of ``cluster`` blocks (ranks) of (tile_cols / 4 column lanes) x
+    ``row_lanes`` threads. Lane q = rank * row_lanes + row lane sums rows
+    [q * rows_per_lane, (q + 1) * rows_per_lane) of the B*N rows, clipped to
+    them; rank k so owns ``rows_per_rank`` rows from k * rows_per_rank."""
+
+    tile_cols: int
+    row_lanes: int
+    cluster: int
+    rows_per_lane: int
+    tiles: int
+
+    @property
+    def threads(self) -> int:
+        return self.tile_cols // 4 * self.row_lanes
+
+    @property
+    def rows_per_rank(self) -> int:
+        return self.row_lanes * self.rows_per_lane
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.cluster
+
+    def lane_rows(self, rows: int) -> Iterator[range]:
+        """The rows of each lane of a tile, lane by lane (rank-major)."""
+        for q in range(self.cluster * self.row_lanes):
+            yield range(min(rows, q * self.rows_per_lane), min(rows, (q + 1) * self.rows_per_lane))
+
+
+def window_plan(rows: int, frame_len: int, sm_count: int) -> WindowPlan:
+    """K1W's plan for ``rows`` = B*N rows of ``frame_len`` columns on a card of
+    ``sm_count`` SMs: the widest column tile that still gives about
+    ``_WINDOW_BLOCKS_PER_SM`` blocks per SM with clusters of
+    ``_WINDOW_MAX_CLUSTER``, then as many ranks a tile as that many blocks
+    allow; every block resident at once."""
+    if rows < 1 or frame_len < 1 or sm_count < 1:
+        raise ValueError(f"K1W plan: rows {rows}, frame_len {frame_len}, SMs {sm_count}")
+    target = max(1, int(_WINDOW_BLOCKS_PER_SM * sm_count))
+    lanes = -(-frame_len // 4)  # column lanes of 4 columns
+    for col_lanes in _WINDOW_COL_LANES:
+        if -(-lanes // col_lanes) * _WINDOW_MAX_CLUSTER >= target:
+            break
+    col_lanes = min(col_lanes, -(-lanes // 8) * 8)
+    tiles = -(-lanes // col_lanes)
+    cluster = max(1, min(_WINDOW_MAX_CLUSTER, target // tiles))
+    row_lanes = max(1, min(_WINDOW_THREADS // col_lanes, -(-rows // cluster)))
+    return WindowPlan(tile_cols=4 * col_lanes, row_lanes=row_lanes, cluster=cluster,
+                      rows_per_lane=-(-rows // (cluster * row_lanes)), tiles=tiles)
 
 
 def windowed_ola_reference(frames: torch.Tensor, window: torch.Tensor, hop: int) -> torch.Tensor:
@@ -135,28 +197,18 @@ def ola_backward_frames_cuda(g: torch.Tensor, frames_shape: torch.Size, window: 
     return out
 
 
-def _window_chunks(rows: int, frame_len: int) -> Tuple[int, int]:
-    """(rows per chunk, chunks) for K1W: about ``_WINDOW_BLOCKS`` blocks of
-    (1024 columns, one chunk of rows), every chunk non-empty."""
-    col_tiles = -(-frame_len // 1024)
-    chunks = max(1, min(rows, -(-_WINDOW_BLOCKS // col_tiles)))
-    per = -(-rows // chunks)
-    return per, -(-rows // per)
-
-
 def ola_backward_window_cuda(g: torch.Tensor, frames: torch.Tensor, window: torch.Tensor,
                              hop: int) -> torch.Tensor:
     """Launch K1W: the window's gradient ``sum over (b, i) of frame(g) * frames``,
-    per-chunk partial sums added in a fixed order."""
+    in one launch, in the fixed order of ``window_plan`` for this card's SM
+    count."""
     _check(frames, window, hop)
     batch, n, L = _check_cotangent(g, frames.shape, window, hop)
-    per, chunks = _window_chunks(batch * n, L)
-    if chunks > _MAX_GRID_Y:
-        raise ValueError(f"K1W takes at most {_MAX_GRID_Y} row chunks, got {chunks}")
-    partial = torch.empty((chunks, L), dtype=torch.float32, device=g.device)
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    plan = window_plan(batch * n, L, sms)
     out = torch.empty((L,), dtype=torch.float32, device=g.device)
-    K1W.launch(g.device, g.data_ptr(), frames.data_ptr(), partial.data_ptr(), out.data_ptr(),
-               batch, n, L, hop, per, chunks, _stream(g))
+    K1W.launch(g.device, g.data_ptr(), frames.data_ptr(), out.data_ptr(), batch, n, L, hop,
+               plan.tile_cols, plan.row_lanes, plan.cluster, plan.rows_per_lane, _stream(g))
     return out
 
 

@@ -1,0 +1,70 @@
+"""Cases and inputs that the card tests (``tests/test_torch_cuda.py``) and
+``chip_smoke.py`` share, so that both hold a kernel at the same edges in the
+same way."""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from audio_cut_tpu_torch.ops.ola import WindowPlan, windowed_ola_backward_reference
+from audio_cut_tpu_torch.ops.stft import frame_signal
+
+# K1W's edges: (what, batch, n_frames, frame_len, hop, offset of the inputs
+# from a 16 B boundary in floats). The last two are the scalar path: a hop
+# that is no multiple of 4, and the training shape [4, 128, 6144] hop 1024
+# on a view 4 B off alignment.
+K1W_EDGE_SHAPES = [
+    ("one frame", 1, 1, 6144, 1024, 0),
+    ("fewer rows than the cluster", 1, 5, 512, 128, 0),
+    ("rows the cluster does not divide", 3, 7, 6144, 1024, 0),
+    ("L not a multiple of the tile", 2, 9, 1000, 250, 0),
+    ("scalar path: hop not a multiple of 4", 2, 7, 90, 30, 0),
+    ("scalar path: 4 B off 16 B alignment", 4, 128, 6144, 1024, 1),
+]
+
+
+def k1w_edge_holds(edge: str, batch: int, n: int, frame_len: int, hop: int, offset: int,
+                   plan: WindowPlan) -> bool:
+    """Whether the case ``edge`` of ``K1W_EDGE_SHAPES`` is that edge under ``plan``."""
+    rows = batch * n
+    return {"one frame": rows == 1,
+            "fewer rows than the cluster": rows < plan.cluster,
+            "rows the cluster does not divide": rows % plan.cluster != 0,
+            "L not a multiple of the tile": frame_len % plan.tile_cols != 0,
+            "scalar path: hop not a multiple of 4": hop % 4 != 0,
+            "scalar path: 4 B off 16 B alignment": offset % 4 != 0}[edge]
+
+
+def k1w_inputs(shape: Tuple[int, ...], hop: int, seed: int, device,
+               offset: int = 0) -> List[torch.Tensor]:
+    """frames of ``shape`` and their cotangent g, standard normal from ``seed``,
+    each starting ``offset`` floats into its storage."""
+    n, frame_len = shape[-2], shape[-1]
+    rng = np.random.default_rng(seed)
+    out = []
+    for x_shape in (shape, shape[:-2] + ((n - 1) * hop + frame_len,)):
+        x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(device)
+        buf = torch.empty(x.numel() + offset, device=device)
+        buf[offset:] = x.reshape(-1)
+        out.append(buf[offset:].view(x_shape))
+    return out
+
+
+def k1w_error(got: torch.Tensor, g: torch.Tensor, frames: torch.Tensor,
+              hop: int) -> Tuple[float, float]:
+    """max |got - plain| of a window's gradient over its columns, and the
+    largest share of a column's sum |g * frames| that it reaches. Raises if
+    ``got`` has another shape than the plain backward's."""
+    n, frame_len = frames.shape[-2], frames.shape[-1]
+    _, want = windowed_ola_backward_reference(g, frames, None, hop, frames_shape=frames.shape,
+                                              want_frames=False)
+    if got.shape != want.shape:
+        raise ValueError(f"K1W gave shape {tuple(got.shape)}, the plain backward "
+                         f"{tuple(want.shape)}")
+    raw = frame_signal(g, frame_len, hop, center=False)[..., :n, :]
+    scale = (raw * frames).abs().sum(dim=tuple(range(raw.ndim - 1)))
+    err = (got - want).abs()
+    return float(err.max()), float((err / scale.clamp_min(1e-30)).max())

@@ -15,13 +15,13 @@
    PyTorch version at atol 1e-5, at both shapes the main path gives it and two
    others, and times it at the serving shape beside its plain version,
    ``F.fold`` and its bound; holds K1's backward kernels (``csrc/ola.cu``:
-   K1B, the frames' gradient, exactly; K1W, the window's, within
-   ``OLA_BWD_RTOL`` of the sum of |terms|) against the plain backward at the
-   same shapes, the training shape and a hop that takes the kernels' scalar
-   path, checks that autograd through the iSTFT on the card launches K1B and
-   gives the CPU's gradient, and times K1B, K1W and the two together at the
-   training shape beside the plain backward, the backward of ``F.fold`` and
-   their bounds;
+   K1B, the frames' gradient, exactly; K1W, the window's, one launch that
+   reduces the rows across a thread-block cluster, within ``OLA_BWD_RTOL``
+   of the sum of |terms|) against the plain backward at the same shapes, the
+   training shape and a hop that takes the kernels' scalar path, checks that
+   autograd through the iSTFT on the card launches K1B and gives the CPU's
+   gradient, and times K1B and K1B + K1W at the training shape beside the
+   plain backward, the backward of ``F.fold`` and their bounds;
 4. holds kernel K2 (spectral flatness and onset, ``csrc/frame_stats.cu``)
    against its plain version at rtol 2e-4 / atol 2e-5, at the feature grids of
    a 60 s and a 3-minute song, edge shapes (``K2_SHAPES``) and a
@@ -64,7 +64,20 @@
     card and on the CPU from the same weights and batch: the loss and the
     global gradient norm within ``STEP_RTOL`` and every leaf's gradients at
     cosine >= ``STEP_MIN_COS``;
-12. prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+12. holds K1W (``csrc/ola.cu``, the window's gradient: one launch that
+    reduces the rows across a thread-block cluster) at its edge shapes
+    (``K1W_EDGE_SHAPES`` of ``audio_cut_tpu_torch/testing.py``, which the
+    card tests share: one frame, fewer rows than its cluster, rows its
+    cluster does not divide, a ragged column tile, the scalar path by hop and
+    by alignment), checks that two launches give the same bits, that one
+    profiled call runs one device kernel and that a trainable window through
+    ``windowed_ola`` launches K1W once with the same bits, and times K1W at
+    ``K1W_TIMED_SHAPES`` beside its plain version, the one-call
+    ``torch.einsum`` yardstick (and ``F.fold``'s autograd at the training
+    shape) and its bound. It runs after the main path and training, so that
+    the cuBLAS workspace the ``torch.einsum`` yardstick leaves allocated is
+    not counted in their peak memory;
+13. prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
 result. It needs no network and writes only under ``build/`` in the checkout
@@ -88,14 +101,17 @@ KERNEL_SOURCES = ("probe", "ola", "frame_stats")
 OLA_ATOL = 1e-5
 # K1W against the plain backward, per column c: |kernel - plain| <= rtol *
 # sum_{b,i} |g * frames|. Both sum the same float32 products in another order
-# (per-chunk partials, then the chunks in order, against torch's reduction),
-# which moves a sum of n terms by at most about n * 6e-8 of that scale and
-# typically sqrt(n) * 6e-8; n is at most 1024 here.
+# (K1W: rows in order within a lane, the lanes of a block, then the ranks of
+# a cluster, against torch's reduction), which moves a sum of n terms by at
+# most about n * 6e-8 of that scale and typically sqrt(n) * 6e-8; n is at
+# most 1024 here.
 OLA_BWD_RTOL = 1e-5
 # the training shape of ConvTDF-large at batch 4: [B, dim_t, n_fft], hop;
 # and a hop that is no multiple of 4, for the backward kernels' scalar path
 TRAIN_OLA_SHAPE = (4, 128, 6144, 1024)
 SCALAR_OLA_SHAPE = (2, 7, 90, 30)
+# K1W timed at the training shape and the largest of OLA_SHAPES (1,024 rows)
+K1W_TIMED_SHAPES = [TRAIN_OLA_SHAPE, (4, 256, 6144, 1024)]
 TRAIN_STEPS = 20
 TRAIN_BATCH = 4
 TRAIN_EVAL_PAIRS = 2
@@ -450,7 +466,8 @@ def _fold_backward(torch, frames, window, hop, wrt):
 def check_k1_backward(torch, dev):
     """K1B and K1W against the plain backward at OLA_SHAPES and the training
     shape; autograd through the iSTFT on the card against the CPU; device
-    times at the training shape: K1B alone, K1W alone, and both."""
+    times at the training shape: K1B alone, and K1B with K1W. Returns K1B's
+    timing, K1W's largest error and the timing of both."""
     import numpy as np
 
     from audio_cut_tpu_torch.ops.ola import (
@@ -522,14 +539,12 @@ def check_k1_backward(torch, dev):
     shape = (batch, n, L)
     g_bytes, f_bytes, w_bytes = batch * total * 4, batch * n * L * 4, L * 4
     frames_moved = g_bytes + w_bytes + f_bytes                  # read g, window; write g_frames
-    window_moved = g_bytes + f_bytes + w_bytes                  # read g, frames; write g_window
     both_moved = g_bytes + f_bytes + w_bytes + f_bytes + w_bytes  # ... and read frames; write g_window
 
     def plain_frames():
         return frame_signal(next_g(), L, hop, center=False)[..., :n, :] * window
 
     lib_frames, lib_frames_stream = _fold_backward(torch, fs[0], window, hop, ("frames",))
-    lib_window, lib_window_stream = _fold_backward(torch, fs[0], window, hop, ("window",))
     lib_both, lib_both_stream = _fold_backward(torch, fs[0], window, hop, ("frames", "window"))
     check = lib_both(gs[0])
     want = windowed_ola_backward_reference(gs[0], fs[0], window, hop)
@@ -549,14 +564,6 @@ def check_k1_backward(torch, dev):
         "bound_ms": frames_moved / HBM_BYTES_PER_S * 1e3,
         "max_abs_err": max_err,
     }
-    window_timing = {
-        "ms": device_ms(lambda: ola_backward_window_cuda(next_g(), next_f(), window, hop)),
-        "plain_ms": device_ms(lambda: windowed_ola_backward_reference(
-            next_g(), next_f(), window, hop, want_frames=False)[1]),
-        "library_ms": device_ms(lambda: lib_window(next_g()), stream=lib_window_stream),
-        "bound_ms": window_moved / HBM_BYTES_PER_S * 1e3,
-        "max_abs_err": max_err_w,
-    }
     both = {
         "ms": device_ms(kernel_both),
         "plain_ms": device_ms(lambda: windowed_ola_backward_reference(next_g(), next_f(), window,
@@ -568,14 +575,120 @@ def check_k1_backward(torch, dev):
           f"replay of 100 calls, median of 5): g_frames (K1B): kernel {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms, F.fold backward {timing['library_ms']:.4f} ms; bound "
           f"{timing['bound_ms']:.5f} ms ({frames_moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
-    print(f"K1 backward, training shape: g_window (K1W, partial sums and their sum): kernels "
-          f"{window_timing['ms']:.4f} ms, plain {window_timing['plain_ms']:.4f} ms, F.fold "
-          f"backward {window_timing['library_ms']:.4f} ms; bound {window_timing['bound_ms']:.5f} "
-          f"ms ({window_moved} bytes)")
     print(f"K1 backward, training shape: g_frames and g_window (K1B + K1W): kernels "
           f"{both['ms']:.4f} ms, plain {both['plain_ms']:.4f} ms, F.fold backward "
           f"{both['library_ms']:.4f} ms; bound {both['bound_ms']:.5f} ms ({both_moved} bytes)")
-    return timing, window_timing, both
+    return timing, max_err_w, both
+
+
+def check_k1w(torch, dev):
+    """K1W at its edge shapes and on an unaligned view, bitwise repeatability,
+    one device kernel in a profiled call, one launch through autograd with a
+    trainable window; device times at K1W_TIMED_SHAPES. Returns (largest
+    |K1W - plain|, the training shape's timing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_cut_tpu_torch.ops.ola import (
+        K1B, K1W, ola_backward_window_cuda, window_plan, windowed_ola,
+        windowed_ola_backward_reference)
+    from audio_cut_tpu_torch.ops.stft import hann_window
+    from audio_cut_tpu_torch.testing import (
+        K1W_EDGE_SHAPES, k1w_edge_holds, k1w_error, k1w_inputs)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err = 0.0
+    for edge, batch, n, L, hop, offset in K1W_EDGE_SHAPES:
+        plan = window_plan(batch * n, L, sms)
+        premise = k1w_edge_holds(edge, batch, n, L, hop, offset, plan)
+        frames, g = k1w_inputs((batch, n, L), hop, n + L, dev, offset)
+        w0 = K1W.launches
+        got = ola_backward_window_cuda(g, frames, hann_window(L, device=dev), hop)
+        err, worst = k1w_error(got, g, frames, hop)
+        print(f"K1W edge, {edge}: ({batch}, {n}, {L}) hop {hop}, offset {4 * offset} B, {plan}: "
+              f"max |kernel - plain| = {err:.3e}, at most {worst:.3e} of sum |g * frames| "
+              f"(rtol {OLA_BWD_RTOL})")
+        if not premise:
+            fail(f"K1W edge {edge!r} is not one under the plan {plan}")
+        if not worst <= OLA_BWD_RTOL or K1W.launches != w0 + 1:
+            fail(f"K1W disagrees with the plain backward at the edge {edge!r}: {worst}")
+        max_err = max(max_err, err)
+
+    batch, n, L, hop = TRAIN_OLA_SHAPE
+    frames, g = k1w_inputs((batch, n, L), hop, 17, dev)
+    window = hann_window(L, device=dev)
+    first = ola_backward_window_cuda(g, frames, window, hop)
+    second = ola_backward_window_cuda(g, frames, window, hop)
+    torch.cuda.synchronize()
+    print(f"K1W {tuple(frames.shape)}: two launches give the same bits: {torch.equal(first, second)}")
+    if not torch.equal(first, second):
+        fail("two K1W launches on the same inputs differ")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ola_backward_window_cuda(g, frames, window, hop)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"K1W profiled call: {len(on_card)} device kernel(s): {on_card}")
+    if len(on_card) != 1 or "ola_backward_window_kernel" not in on_card[0]:
+        fail(f"one K1W call ran {on_card} on the card, not one K1W kernel")
+
+    trainable = window.clone().requires_grad_(True)
+    b0, w0 = K1B.launches, K1W.launches
+    windowed_ola(frames, trainable, hop).backward(g)
+    torch.cuda.synchronize()
+    same = torch.equal(trainable.grad, first)
+    print(f"K1W through windowed_ola with a trainable window: K1W launches {K1W.launches - w0}, "
+          f"K1B launches {K1B.launches - b0}; the gradient equals a direct call's bits: {same}")
+    if K1W.launches - w0 != 1 or K1B.launches != b0 or not same:
+        fail("autograd with a trainable window did not launch K1W once, with its bits")
+
+    plan = window_plan(batch * n, L, sms)
+    print(f"K1W plan at the training shape on {sms} SMs: {plan}: {plan.blocks} blocks of "
+          f"{plan.threads} threads, {plan.rows_per_rank} rows a rank")
+
+    timing = None
+    for batch, n, L, hop in K1W_TIMED_SHAPES:
+        total = (n - 1) * hop + L
+        window = hann_window(L, device=dev)
+        g_bytes, f_bytes, w_bytes = batch * total * 4, batch * n * L * 4, L * 4
+        # inputs rotate over more than the 50 MB L2, each list on its own
+        gs = [torch.randn((batch, total), device=dev) for _ in range(-(-60_000_000 // g_bytes))]
+        fs = [torch.randn((batch, n, L), device=dev) for _ in range(-(-50_000_000 // f_bytes))]
+        next_g, next_f = _rotating(gs), _rotating(fs)
+        moved = g_bytes + f_bytes + w_bytes                     # read g, frames; write g_window
+        ops = 2 * batch * n * L                                 # a multiply and an add a term
+
+        def einsum(gg, ff):
+            return torch.einsum("bnc,bnc->c", gg.unfold(-1, L, hop)[:, :n], ff)
+
+        lib_err = float((einsum(gs[0], fs[0]) - windowed_ola_backward_reference(
+            gs[0], fs[0], window, hop, want_frames=False)[1]).abs().max())
+        t = {
+            "ms": device_ms(lambda: ola_backward_window_cuda(next_g(), next_f(), window, hop)),
+            "plain_ms": device_ms(lambda: windowed_ola_backward_reference(
+                next_g(), next_f(), window, hop, want_frames=False)[1]),
+            "library_ms": device_ms(lambda: einsum(next_g(), next_f())),
+            "bound_ms": max(moved / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3,
+            "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+        }
+        fold = ""
+        if timing is None:  # the training shape: F.fold's autograd beside it, as for K1B
+            lib_window, lib_stream = _fold_backward(torch, fs[0], window, hop, ("window",))
+            t["fold_ms"] = device_ms(lambda: lib_window(next_g()), stream=lib_stream)
+            fold = f", autograd of F.fold (window only) {t['fold_ms']:.4f} ms"
+        print(f"K1W {(batch, n, L)} hop {hop}, device time per call (CUDA graph replay of 100 "
+              f"calls, median of 5): kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"torch.einsum {t['library_ms']:.4f} ms (max |einsum - plain| {lib_err:.3e}){fold}; "
+              f"bound {t['bound_ms']:.5f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s; {ops} "
+              f"operations at {F32_FLOPS:.3e}/s; bound by {t['bound_by']}); share of the bound "
+              f"{t['bound_ms'] / t['ms']:.3f}")
+        if timing is None:
+            timing = t
+        del gs, fs
+    wrapper_ms = call_ms(lambda: ola_backward_window_cuda(g, frames, hann_window(
+        TRAIN_OLA_SHAPE[2], device=dev), TRAIN_OLA_SHAPE[3]))
+    print(f"K1W training shape: wrapper called from Python 100 times in a row, {wrapper_ms:.4f} ms "
+          f"per call (CUDA events; includes the host's launch rate)")
+    return max_err, timing
 
 
 def _k2_inputs(t: int, f: int, seed: int):
@@ -1136,7 +1249,7 @@ def main() -> int:
     build_kernels()
     k0_timing = check_k0(torch, dev)
     k1_err, k1_timing = check_k1(torch, dev)
-    k1b_timing, k1w_timing, _ = check_k1_backward(torch, dev)
+    k1b_timing, k1w_err, _ = check_k1_backward(torch, dev)
     k2_err, k2_timing = check_k2(torch, dev)
 
     from audio_cut_tpu_torch.io import write_wav
@@ -1160,6 +1273,7 @@ def main() -> int:
         card_vs_cpu_step(torch, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    k1w_err_edges, k1w_timing = check_k1w(torch, dev)
 
     # launches: each kernel's count in the training run, the slice's main
     # path; K2, which training never runs, keeps its count from the two
@@ -1201,18 +1315,16 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": k1b_timing["library_ms"],
     }, {
-        # one launch is one call of K1W's C function: the partial sums and
-        # their sum in order, two kernels, timed together
         "name": "K1 backward (g_window) ola_backward_window",
         "route": "cuda",
         "source": "audio_cut_tpu_torch/csrc/ola.cu",
         "replaces": "audio_cut_tpu/ops/pallas/ola.py:77",
         "launches": train_launches["K1W"],
-        "max_abs_err": k1w_timing["max_abs_err"],
+        "max_abs_err": max(k1w_err, k1w_err_edges),
         "ms": k1w_timing["ms"],
         "plain_ms": k1w_timing["plain_ms"],
         "bound_ms": k1w_timing["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": k1w_timing["bound_by"],
         "library_ms": k1w_timing["library_ms"],
     }, {
         "name": "K2 spectral_stats",

@@ -12,12 +12,15 @@ K1's backward: the frames' gradient (K1B) is one product per element and is
 held exactly; the window's (K1W) sums B*N products per column in another
 order than torch's reduction, held per column at 1e-5 of the sum of |terms|
 (reordering moves a float32 sum of n terms by at most about n * 6e-8 of
-it). K0, the library check, is x * 2 and is held exactly.
+it). K1W's order is fixed by its plan, so two launches agree to the bit.
+K0, the library check, is x * 2 and is held exactly.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from audio_cut_tpu_torch.testing import K1W_EDGE_SHAPES, k1w_edge_holds, k1w_error, k1w_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -152,6 +155,59 @@ def test_k1_backward_matches_plain_version(cuda, batch, n, L, hop):
     assert torch.equal(got_f, want_f)
     assert got_w.shape == (L,)
     assert bool(((got_w - want_w).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("edge, batch, n, L, hop, offset", K1W_EDGE_SHAPES)
+def test_k1w_matches_plain_version_at_its_edges(cuda, edge, batch, n, L, hop, offset):
+    from audio_cut_tpu_torch.ops.ola import K1W, ola_backward_window_cuda, window_plan
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    plan = window_plan(batch * n, L, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert k1w_edge_holds(edge, batch, n, L, hop, offset, plan), f"{edge}: not so under {plan}"
+    frames, g = k1w_inputs((batch, n, L), hop, seed=n + L, device=cuda, offset=offset)
+    before = K1W.launches
+    got = ola_backward_window_cuda(g, frames, hann_window(L, device=cuda), hop)
+    torch.cuda.synchronize()
+    assert K1W.launches == before + 1
+    assert got.shape == (L,)
+    assert k1w_error(got, g, frames, hop)[1] <= 1e-5
+
+
+def test_k1w_gives_the_same_bits_twice(cuda):
+    from audio_cut_tpu_torch.ops.ola import ola_backward_window_cuda
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    frames, g = k1w_inputs((4, 128, 6144), 1024, seed=11, device=cuda)
+    window = hann_window(6144, device=cuda)
+    first = ola_backward_window_cuda(g, frames, window, 1024)
+    second = ola_backward_window_cuda(g, frames, window, 1024)
+    assert torch.equal(first, second)
+
+
+def test_k1w_raises_on_a_plan_it_does_not_take(cuda):
+    from audio_cut_tpu_torch.ops.ola import K1W
+
+    frames, g = k1w_inputs((2, 9, 512), 128, seed=3, device=cuda)
+    out = torch.empty(512, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    # (tile_cols, row_lanes, cluster, rows_per_lane): a cluster over 8; lanes that miss rows
+    for plan in ((32, 2, 16, 1), (32, 2, 2, 1)):
+        with pytest.raises(RuntimeError):
+            K1W.launch(cuda, g.data_ptr(), frames.data_ptr(), out.data_ptr(), 2, 9, 512, 128,
+                       *plan, stream)
+
+
+def test_windowed_ola_with_a_trainable_window_launches_k1w_once(cuda):
+    """The window's gradient through autograd is K1W's, bit for bit."""
+    from audio_cut_tpu_torch.ops.ola import K1B, K1W, ola_backward_window_cuda, windowed_ola
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    frames, g = k1w_inputs((2, 33, 2048), 512, seed=5, device=cuda)
+    window = hann_window(2048, device=cuda).requires_grad_(True)
+    counts = (K1B.launches, K1W.launches)
+    windowed_ola(frames, window, 512).backward(g)
+    assert (K1B.launches, K1W.launches) == (counts[0], counts[1] + 1)
+    assert torch.equal(window.grad, ola_backward_window_cuda(g, frames, window.detach(), 512))
 
 
 def test_autograd_through_istft_launches_k1_backward(cuda):
