@@ -4,9 +4,14 @@ Counterpart of ``audio_cut_tpu/api.py``, with the same signature and
 manifest schema. The ``device`` argument maps to
 ``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
 device and no explicit ``"cpu"`` the call raises. The port runs the default
-``mode="v2.2_mdd"`` and ``mode="vocal_separation"``; the lyrics intent
-(``segments``/``alignment``) and the batch entry point come with the modes
-that use them (ROADMAP.md).
+``mode="v2.2_mdd"``, ``mode="vpbd_acoustic"``, ``mode="vpbd_asr"`` with lyrics
+alignment off, and ``mode="vocal_separation"``. The lyrics intent
+(``segments``/``alignment``), which turns lyrics alignment on, and the batch
+entry point come with the modes that use them (ROADMAP.md).
+
+The manifest's ``cuts.final`` enriches each final cut with its planner
+candidate and guard shift, as the JAX package's ``_build_final_cuts`` does,
+its known defect included: a cut that layout moved loses its enrichment.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ def separate_and_segment(
     effective_mode = mode or "v2.2_mdd"
 
     mgr = get_config_manager()
-    snapshot = copy.deepcopy(mgr.config)
+    snapshot = mgr.snapshot()
     try:
         _apply_call_overrides(mgr, device=device, strict_gpu=strict_gpu,
                               layout=layout, overrides=runtime_overrides)
@@ -87,7 +92,7 @@ def separate_and_segment(
             export_plan=list(export_types) if export_types is not None else None,
         )
     finally:
-        mgr.config = snapshot
+        mgr.restore(snapshot)
 
     manifest = _build_manifest(
         result=result,
@@ -124,6 +129,61 @@ def _rel(path_value: Any, base: Path) -> Optional[str]:
         return p.resolve().relative_to(base).as_posix()
     except ValueError:
         return p.as_posix()
+
+
+def _build_final_cuts(result: Mapping[str, Any]) -> List[Any]:
+    """Enrich final cut times with planner candidate metadata + guard shifts:
+    joins the planner's final_time_by_raw_time and guard_shift_ms_by_raw_time
+    onto cut_points_sec. Without ``boundary_detection`` the plain times."""
+    cut_points = list(result.get("cut_points_sec", []))
+    bd = result.get("boundary_detection")
+    if not isinstance(bd, Mapping):
+        return cut_points
+    planner = bd.get("planner") if isinstance(bd.get("planner"), Mapping) else {}
+
+    final_by_raw: Dict[float, float] = {}
+    for raw, fin in (planner.get("final_time_by_raw_time", {}) or {}).items():
+        try:
+            final_by_raw[round(float(raw), 6)] = float(fin)
+        except (TypeError, ValueError):
+            continue
+
+    selected_by_final: Dict[float, Mapping[str, Any]] = {}
+    for item in bd.get("selected", []) or []:
+        if not isinstance(item, Mapping):
+            continue
+        try:
+            raw_key = round(float(item.get("t")), 6)
+        except (TypeError, ValueError):
+            continue
+        selected_by_final[round(final_by_raw.get(raw_key, raw_key), 6)] = item
+
+    guard_by_final: Dict[float, Any] = {}
+    for raw, shift in (planner.get("guard_shift_ms_by_raw_time", {}) or {}).items():
+        try:
+            raw_key = round(float(raw), 6)
+        except (TypeError, ValueError):
+            continue
+        guard_by_final[round(final_by_raw.get(raw_key, raw_key), 6)] = shift
+
+    if not selected_by_final and not guard_by_final:
+        return cut_points
+
+    out: List[Any] = []
+    for t in cut_points:
+        key = round(float(t), 6)
+        entry: Dict[str, Any] = {"t": float(t)}
+        cand = selected_by_final.get(key)
+        if cand is not None:
+            entry["score"] = cand.get("score")
+            entry["source"] = cand.get("source")
+            entry["features"] = dict(cand.get("features", {}) or {})
+            entry["reasons"] = list(cand.get("reasons", []) or [])
+            entry["meta"] = dict(cand.get("meta", {}) or {})
+        if key in guard_by_final:
+            entry["guard_shift_ms"] = guard_by_final[key]
+        out.append(entry)
+    return out
 
 
 def _build_segments(result: Mapping[str, Any], export_dir: Path) -> List[Dict[str, Any]]:
@@ -221,9 +281,7 @@ def _build_manifest(
         },
         "layout_cfg": dict(layout_cfg) | {"applied": bool(result.get("segment_layout_applied", False))},
         "cuts": {
-            # the planner enrichment of the JAX package's _build_final_cuts
-            # joins boundary_detection, which the cutting modes bring
-            "final": list(result.get("cut_points_sec", [])),
+            "final": _build_final_cuts(result),
             "samples": result.get("cut_points_samples", []),
             "suppressed": result.get("suppressed_cut_points_sec", []),
         },

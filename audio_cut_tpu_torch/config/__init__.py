@@ -2,6 +2,7 @@ from audio_cut_tpu_torch.config.manager import (
     ConfigManager,
     get_config,
     get_config_manager,
+    get_runtime_override_keys,
     reset_runtime_config,
     set_runtime_config,
 )
@@ -12,4 +13,5 @@ __all__ = [
     "get_config_manager",
     "set_runtime_config",
     "reset_runtime_config",
+    "get_runtime_override_keys",
 ]

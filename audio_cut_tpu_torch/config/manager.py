@@ -7,6 +7,12 @@ Counterpart of ``audio_cut_tpu/config/manager.py``. Precedence, lowest first:
 * ``VSS__section__key`` environment variables;
 * runtime overrides (``set_runtime_config``, and each API call's own).
 
+As in the JAX package, ``set_runtime_config`` records the dotted keys it
+sets (``get_runtime_override_keys``), so that intent logic can tell the keys a
+caller set from defaults, and every change of the config bumps a generation
+counter. The API snapshots and restores ``mgr.config`` around a call; the
+recorded keys survive that restore, as in the JAX package.
+
 The defaults are JSON, so the port runs without PyYAML; an environment value
 is parsed by the YAML scalar rules the JAX package applies to it (see
 ``_coerce_env_value``). External config files (``$AUDIO_CUT_TPU_CONFIG``,
@@ -90,11 +96,13 @@ def set_nested(mapping: MutableMapping[str, Any], dotted: str, value: Any) -> No
 
 
 class ConfigManager:
-    """Layered config with dotted access and runtime overrides."""
+    """Layered config with dotted access and tracked runtime overrides."""
 
     def __init__(self) -> None:
         self._lock = threading.RLock()
+        self._runtime_keys: set[str] = set()
         self.config: Dict[str, Any] = {}
+        self._generation = 0
         self.reload()
 
     def reload(self) -> None:
@@ -111,6 +119,8 @@ class ConfigManager:
             self._validate(cfg)
             self.config = cfg
             self._baseline = copy.deepcopy(cfg)
+            self._runtime_keys = set()
+            self._generation += 1
 
     @staticmethod
     def _apply_env_overrides(cfg: MutableMapping[str, Any]) -> None:
@@ -141,10 +151,33 @@ class ConfigManager:
         with self._lock:
             for dotted, value in overrides.items():
                 set_nested(self.config, dotted, value)
+                self._runtime_keys.add(dotted)
+            self._generation += 1
 
     def reset_runtime(self) -> None:
         with self._lock:
             self.config = copy.deepcopy(self._baseline)
+            self._runtime_keys = set()
+            self._generation += 1
+
+    def runtime_override_keys(self) -> set[str]:
+        with self._lock:
+            return set(self._runtime_keys)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return copy.deepcopy(self.config)
+
+    def restore(self, snapshot: Mapping[str, Any]) -> None:
+        with self._lock:
+            self.config = copy.deepcopy(dict(snapshot))
+            self._generation += 1
+
+    def generation(self) -> int:
+        """Monotonic counter bumped on every config mutation; cheap cache
+        key for derived state that must not survive a config change."""
+        with self._lock:
+            return self._generation
 
 
 _manager: Optional[ConfigManager] = None
@@ -169,3 +202,7 @@ def set_runtime_config(overrides: Mapping[str, Any]) -> None:
 
 def reset_runtime_config() -> None:
     get_config_manager().reset_runtime()
+
+
+def get_runtime_override_keys() -> set[str]:
+    return get_config_manager().runtime_override_keys()

@@ -14,7 +14,7 @@ zero-crossing snap runs on the host mix, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -266,6 +266,22 @@ def finalize_cut_points(
     final_points = [CutPoint(t=float(t), score=1.0) for t in kept_times]
     boundaries = sorted({0, mix.size, *(int(round(t * sr)) for t in kept_times)})
     return CutRefineResult(final_points, boundaries, kept_adjustments, suppressed)
+
+
+def merge_word_intervals(word_intervals) -> List[Tuple[float, float]]:
+    """Merge overlapping/touching (start, end) intervals into a disjoint
+    sorted list. ASR word intervals DO overlap (layered/backing vocals);
+    searchsorted-based inside-word checks are only correct on disjoint
+    intervals — an overlapped longer word would otherwise be missed."""
+    iv = sorted((float(a), float(b)) for a, b in word_intervals)
+    merged: List[Tuple[float, float]] = []
+    for a, b in iv:
+        if merged and a <= merged[-1][1]:
+            if b > merged[-1][1]:
+                merged[-1] = (merged[-1][0], b)
+        else:
+            merged.append((a, b))
+    return merged
 
 
 def guard_shift_stats(adjustments: Sequence[CutAdjustment]) -> Dict[str, float]:

@@ -1,23 +1,30 @@
-"""v2.2_mdd: pure-vocal pause detection -> guards -> layout -> split -> export.
+"""v2.2_mdd / vpbd_*: candidates -> guards -> layout -> split -> export.
 
-Counterpart of ``audio_cut_tpu/pipeline/modes/pure_vocal.py`` for
-``mode="v2.2_mdd"``: one separation-and-bundle pass on the device and one
-host copy (``separation/fused.py``), then on the host the VAD focus windows,
-``PureVocalPauseDetector`` with the MDD enhancement, the pure-music span
-candidates, ``finalize_cut_points`` (NMS, zero-cross snap, quiet guards),
-the pre-layout classification, the layout refinement, the local valley
-refine, the classification and weak-tail merge, the sample-exact split and
-the export.
+Counterpart of ``audio_cut_tpu/pipeline/modes/pure_vocal.py``: one
+separation-and-bundle pass on the device and one host copy
+(``separation/fused.py``), then on the host the VAD focus windows and the
+candidates: ``PureVocalPauseDetector`` with the MDD enhancement for
+``v2.2_mdd``; for ``vpbd_acoustic`` and ``vpbd_asr`` the smart-cut runtime
+(intent, AutoProfile style estimate, profile interpolation) and the
+``VocalPhraseBoundaryDetector`` (unified pool, scorer, DP planner), whose
+candidates are snapped to the quietest point of the guard's dB grid. Then,
+for every mode, the pure-music span candidates, ``finalize_cut_points``
+(NMS, zero-cross snap, quiet guards), the pre-layout classification, the
+layout refinement, the local valley refine, the classification and weak-tail
+merge, the sample-exact split and the export.
 
 The port has one path. The JAX package's staged bundle with its retry and
 CPU-rebuild chain, and the host-waveform branches that run when no bundle
-exists, are not ported: ``device_pipeline.fused_program: false`` raises. The
-``vpbd_*`` modes and the ``hybrid_mdd`` memo come with those modes
-(ROADMAP.md, queue 1).
+exists, are not ported: ``device_pipeline.fused_program: false`` raises. So
+does ``vpbd_asr`` with lyrics alignment on (the lyrics providers, and with
+them the guard restore outside recognised words, are not ported); with it
+off, the default, ``vpbd_asr`` runs the acoustic path as in the JAX package.
+The ``hybrid_mdd`` memo comes with that mode (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -25,17 +32,28 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 from torch.profiler import record_function
 
-from audio_cut_tpu_torch.config import get_config
+from audio_cut_tpu_torch.config import get_config, get_runtime_override_keys, set_runtime_config
+from audio_cut_tpu_torch.config.auto_profile import (
+    build_auto_profile_overrides,
+    derive_alignment_overrides,
+    derive_smart_cut_overrides,
+    estimate_style,
+    profile_override_map,
+    resolve_smart_cut_intent,
+)
 from audio_cut_tpu_torch.cutting.layout import RescueCandidate, refine_layout
+from audio_cut_tpu_torch.cutting.planner import apply_guard_shift_metadata
 from audio_cut_tpu_torch.cutting.refine import (
     CutContext,
     CutPoint,
     QuietLookup,
     finalize_cut_points,
     guard_shift_stats,
+    merge_word_intervals,
 )
 from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
 from audio_cut_tpu_torch.detection.vad import EnergyGateDetector, to_focus_windows
+from audio_cut_tpu_torch.detection.vpbd import VocalPhraseBoundaryDetector, check_lyrics_alignment
 from audio_cut_tpu_torch.io.segment_export import ExportResult
 from audio_cut_tpu_torch.pipeline.classify import (
     classify_segments_vocal_presence,
@@ -43,6 +61,10 @@ from audio_cut_tpu_torch.pipeline.classify import (
     pure_music_spans,
 )
 from audio_cut_tpu_torch.pipeline.split import split_at_sample_level
+
+logger = logging.getLogger(__name__)
+
+VPBD_MODES = ("vpbd_acoustic", "vpbd_asr")
 
 
 def process_pure_vocal_split(
@@ -58,6 +80,7 @@ def process_pure_vocal_split(
             "device_pipeline.fused_program=false (the staged bundle path and its fallback "
             "chain) is not in the PyTorch port yet: ROADMAP.md, queue 1, 'the staged bundle "
             "path and the engine fallback chain'")
+    check_lyrics_alignment(mode)
     t0 = time.time()
     sr = splitter.sample_rate
     with record_function("load"):
@@ -80,7 +103,8 @@ def process_pure_vocal_split(
         refine_win_ms=float(lbr.get("window_ms", 5)),
     )
     with record_function("host_tail"):
-        plan = _plan_cuts(audio, sr, bundle, vad_detector, vad_model, qc, eqc, lbr)
+        plan = _plan_cuts(audio, sr, bundle, vad_detector, vad_model, qc, eqc, lbr,
+                          mode=mode, output_dir=output_dir)
     cut_samples, flags, debug = plan["cut_samples"], plan["flags"], plan["debug"]
     refine_result = plan["refine_result"]
 
@@ -113,20 +137,28 @@ def process_pure_vocal_split(
         guard_shift_stats=stats,
         guard_adjustments=[a.to_dict() for a in refine_result.adjustments],
         segment_classification_debug=debug_out,
+        lyrics_alignment=plan["lyrics_alignment"],
+        boundary_detection=plan["boundary_detection"],
         suppressed_cut_points_sec=plan["suppressed_sec"],
     )
     result["segment_layout_applied"] = plan["layout_applied"]
     result["vad_backend"] = plan["vad_backend"]
     if plan["note"]:
         result["note"] = plan["note"]
+    if plan["auto_profile"] is not None:
+        result["auto_profile"] = plan["auto_profile"]
     return splitter.result_builder.add_separation_metadata(result, sep)
 
 
 def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
-               qc: Dict[str, Any], eqc: Dict[str, Any], lbr: Dict[str, Any]) -> Dict[str, Any]:
+               qc: Dict[str, Any], eqc: Dict[str, Any], lbr: Dict[str, Any], *,
+               mode: str = "v2.2_mdd", output_dir: Optional[str] = None) -> Dict[str, Any]:
     """The host tail from the bundle to the final cut samples, their flags
-    and debug entries: VAD focus windows, pause detection, guards, layout,
-    the valley refine, classification and the weak-tail merge."""
+    and debug entries: VAD focus windows, the mode's candidates, guards,
+    layout, the valley refine, classification and the weak-tail merge. For
+    the vpbd modes it applies the smart-cut runtime overrides to the config,
+    which the caller restores, and writes the candidate debug JSON to
+    ``output_dir`` when one is given."""
     duration = len(audio) / float(sr)
     features = bundle.features
 
@@ -144,27 +176,77 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
         merge_gap_s=float(acfg.get("focus_merge_gap_s", 0.12)),
         min_width_s=float(acfg.get("focus_window_min_width_s", 0.0)),
     )
+    # the real vocal coverage feeds AutoProfile's style estimate
+    covered = sum(b - a for a, b in vad.segments)
+    features.extras["vocal_coverage_ratio"] = min(1.0, covered / max(duration, 1e-9))
 
     # -- candidates -------------------------------------------------------------
-    detector = PureVocalPauseDetector(sr)
-    pauses = detector.detect_pure_vocal_pauses(
-        features=features, focus_windows=focus, enable_mdd=True,
-        rms_env=bundle.vocal_rms_fine,
-        env_db_grid=bundle.vocal_db_fine,
-        env_db_stride=bundle.db_stride,
-        n_samples=len(audio),
-    )
-    raw_points = [
-        CutPoint(p.cut_point if p.cut_point > 0 else (p.start_time + p.end_time) / 2.0,
-                 float(np.clip(p.confidence, 0.0, 1.0)))
-        for p in pauses
-    ]
+    boundary_detection: Optional[Dict[str, Any]] = None
+    lyrics_alignment: Optional[Dict[str, Any]] = None
+    auto_profile: Optional[Dict[str, Any]] = None
+    note: Optional[str] = None
+    vres = None
+    if mode in VPBD_MODES:
+        auto_profile = _apply_smart_cut_runtime(features)
+        vres = VocalPhraseBoundaryDetector(sr).detect(
+            mode=mode, features=features, focus_windows=focus, duration_s=duration,
+            bundle=bundle, output_dir=output_dir,
+        )
+        raw_points = [CutPoint(c.t, c.score, kind=c.source.value) for c in vres.selected]
+        if not raw_points and vres.plan.rescue_points:
+            # planner infeasible: the even-division rescue times stand in
+            raw_points = [CutPoint(t, 0.5, kind="rescue") for t in vres.plan.rescue_points]
+        boundary_detection = vres.to_meta()
+        lyrics_alignment = vres.lyrics_alignment
+        note = vres.note
+    else:
+        detector = PureVocalPauseDetector(sr)
+        pauses = detector.detect_pure_vocal_pauses(
+            features=features, focus_windows=focus, enable_mdd=True,
+            rms_env=bundle.vocal_rms_fine,
+            env_db_grid=bundle.vocal_db_fine,
+            env_db_stride=bundle.db_stride,
+            n_samples=len(audio),
+        )
+        raw_points = [
+            CutPoint(p.cut_point if p.cut_point > 0 else (p.start_time + p.end_time) / 2.0,
+                     float(np.clip(p.confidence, 0.0, 1.0)))
+            for p in pauses
+        ]
 
     # pure-music span boundaries as extra candidates (intro/interlude/outro)
     for span_start, span_end in pure_music_spans(sr, act_rms=bundle.act_rms):
         for t in (span_start, span_end):
             if 0.5 < t < duration - 0.5:
                 raw_points.append(CutPoint(float(t), 0.8, kind="music_span"))
+
+    # -- pre-guard valley snap (vpbd) -------------------------------------------
+    # Each planner candidate moves to the quietest point of the SAME dB grid
+    # the quiet guard reads, within the SAME radius it searches, when that
+    # point is at least min_drop_db quieter: the guard then finds nothing
+    # quieter (shift 0), and on clean stems (flat silence) nothing moves.
+    if vres is not None and raw_points:
+        snap_ms = float(get_config("vpbd.candidate_valley_snap_ms", 450.0))
+        if snap_ms > 0:
+            drop_cfg = get_config("vpbd.candidate_valley_snap_min_drop_db", None)
+            raw_points = _valley_snap_points(
+                raw_points, bundle.vocal_db_guard, sr, bundle.db_stride,
+                radius_ms=snap_ms,
+                min_drop_db=(
+                    float(drop_cfg) if drop_cfg is not None
+                    else float(eqc.get("guard_db", 1.5))
+                ),
+            )
+            # the planner bookkeeping and the manifest's final-cut enrichment
+            # key on the snapped times, so the selected entries carry them
+            # (the detected time kept as t_detected); raw_points[:len(selected)]
+            # is 1:1 with selected, the music-span extras sit at the tail
+            if boundary_detection and boundary_detection.get("selected"):
+                for entry, pt in zip(boundary_detection["selected"], raw_points):
+                    t_new = float(pt.t)
+                    if abs(t_new - float(entry.get("t", t_new))) > 1e-9:
+                        entry["t_detected"] = entry["t"]
+                        entry["t"] = t_new
 
     # -- guard finalisation -------------------------------------------------------
     floor_pct = float(eqc.get("floor_percentile", 0.5))
@@ -193,6 +275,10 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
     )
     cut_times = [p.t for p in refine_result.final_points]
     suppressed_sec = [p.t for p in refine_result.suppressed_points]
+
+    if vres is not None:
+        plan_with_shifts = apply_guard_shift_metadata(vres.plan, refine_result.adjustments)
+        boundary_detection["planner"] = dict(plan_with_shifts.metadata)
 
     # -- layout refinement ------------------------------------------------------
     layout_cfg = get_config("v2_mdd.segment_layout", {}) or {}
@@ -230,6 +316,7 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
             min_drop_db=float(lbr.get("min_drop_db", 5.0)),
             db_grid=bundle.mix_db_refine,
             db_stride=bundle.db_stride,
+            word_intervals=None,
         )
 
     # -- classification + weak-tail merge -------------------------------------------
@@ -240,17 +327,62 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
         cut_samples, sr, act_rms=bundle.act_rms, n_samples=len(audio))
     cut_samples, flags, debug = merge_weak_human_tails(list(cut_samples), flags, debug, sr)
 
-    note: Optional[str] = None
     if len(cut_samples) < 3:  # single-segment fallback
         cut_samples = [0, len(audio)]
         if not flags:
             flags = [True]
             debug = [{"index": 0, "decision": True, "reason": "single_segment_fallback"}]
-        note = "single_segment_fallback"
+        note = note or "single_segment_fallback"
     return {"cut_samples": cut_samples, "flags": flags, "debug": debug,
             "refine_result": refine_result, "suppressed_sec": suppressed_sec,
-            "layout_applied": layout_applied, "vad_backend": vad_backend, "note": note}
+            "layout_applied": layout_applied, "vad_backend": vad_backend, "note": note,
+            "boundary_detection": boundary_detection, "lyrics_alignment": lyrics_alignment,
+            "auto_profile": auto_profile}
 
+
+def _apply_smart_cut_runtime(features) -> Optional[Dict[str, Any]]:
+    """Resolve the v2.8 intent surface into runtime overrides: intent ->
+    AutoProfile ``estimate_style`` (``profile: auto``) or an explicit style
+    profile -> alignment-pole lerp -> ``set_runtime_config``."""
+    smart_cut = get_config("smart_cut", {}) or {}
+    explicit = get_runtime_override_keys()
+    try:
+        intent = resolve_smart_cut_intent(smart_cut, explicit_keys=explicit)
+    except ValueError as exc:
+        logger.warning("invalid smart_cut intent (%s); using defaults", exc)
+        return None
+
+    overrides: Dict[str, Any] = {}
+    meta: Dict[str, Any] = {"intent": intent}
+
+    profile = intent["profile"]
+    if profile == "auto":
+        est = estimate_style(features)
+        auto = build_auto_profile_overrides(est, cut_style=str(smart_cut.get("cut_style", "natural")))
+        meta["auto_profile"] = auto.pop("meta.auto_profile", {})
+        auto.pop("meta.profile", None)
+        overrides.update(auto)
+    elif profile in ("ballad", "pop", "edm", "rap"):
+        try:
+            overrides.update(profile_override_map(profile))
+            meta["profile"] = profile
+        except FileNotFoundError:
+            logger.warning("unknown style profile %r", profile)
+
+    style_weights = get_config("phrase_boundary.weights", {}) or {}
+    for key, value in list(overrides.items()):
+        if key.startswith("phrase_boundary.weights."):
+            style_weights[key.split(".")[-1]] = value
+    overrides.update(derive_alignment_overrides(
+        intent["alignment"], style_weights,
+        alignment_poles=get_config("phrase_boundary.alignment_poles", {}),
+    ))
+    overrides.update(derive_smart_cut_overrides(smart_cut, explicit_keys=explicit))
+
+    if overrides:
+        set_runtime_config(overrides)
+    meta["applied_override_count"] = len(overrides)
+    return meta
 
 
 def _export(splitter, sep, audio, segments, flags_out, cut_samples, export_flags,
@@ -292,6 +424,52 @@ def _export(splitter, sep, audio, segments, flags_out, cut_samples, export_flags
     return out
 
 
+def _inside_word_check(word_intervals: Optional[List[tuple]]):
+    """A predicate: is ``t`` strictly inside one of the (merged) words?"""
+    if not word_intervals:
+        return lambda t: False
+    iv = merge_word_intervals(word_intervals)  # overlapping words happen
+    word_starts = np.asarray([a for a, _ in iv])
+    word_ends = np.asarray([b for _, b in iv])
+
+    def inside(t: float) -> bool:
+        k = int(np.searchsorted(word_starts, t, side="right")) - 1
+        return k >= 0 and word_starts[k] < t < word_ends[k]
+
+    return inside
+
+
+def _valley_snap_points(
+    points,
+    db_grid: np.ndarray,
+    sr: int,
+    db_stride: int,
+    *,
+    radius_ms: float,
+    min_drop_db: float,
+):
+    """Snap each CutPoint's time to the quietest grid point within
+    ``±radius_ms``, keeping score/kind. Only moves when the valley is at
+    least ``min_drop_db`` quieter than the current position (clean stems
+    stay untouched). Run BEFORE NMS/guards — see the call site for why."""
+    env_db = np.asarray(db_grid)
+    grid_sr = sr / float(db_stride)
+    radius = max(1, int(round(radius_ms / 1000.0 * grid_sr)))
+    n = env_db.size
+    out = []
+    for p in points:
+        idx = int(np.clip(round(p.t * grid_sr), 0, n - 1))
+        lo = max(0, idx - radius)
+        hi = min(n, idx + radius)
+        best = int(np.argmin(env_db[lo:hi])) + lo
+        t_best = best / grid_sr
+        if env_db[idx] - env_db[best] >= min_drop_db:
+            out.append(type(p)(float(t_best), p.score, kind=p.kind))
+        else:
+            out.append(p)
+    return out
+
+
 def _local_valley_refine(
     cut_times: List[float],
     sr: int,
@@ -300,11 +478,15 @@ def _local_valley_refine(
     min_drop_db: float,
     db_grid: np.ndarray,
     db_stride: int,
+    word_intervals: Optional[List[tuple]] = None,
 ) -> List[float]:
     """Move each cut to a strictly quieter local valley of the mix's dB grid
-    within ``radius_ms``, when it is at least ``min_drop_db`` quieter."""
+    within ``radius_ms``, when it is at least ``min_drop_db`` quieter. When
+    ``word_intervals`` (recognised ASR words) is given, a refined position
+    that lands strictly inside a word is rejected and the cut kept."""
     if not cut_times:
         return cut_times
+    inside_word = _inside_word_check(word_intervals)
     env_db = np.asarray(db_grid)
     grid_sr = sr / float(db_stride)
     radius = max(1, int(round(radius_ms / 1000.0 * grid_sr)))
@@ -316,8 +498,9 @@ def _local_valley_refine(
         lo = max(0, idx - radius)
         hi = min(n, idx + radius)
         best = int(np.argmin(env_db[lo:hi])) + lo
-        if env_db[idx] - env_db[best] >= min_drop_db:
-            out.append(best / grid_sr)
+        t_best = best / grid_sr
+        if env_db[idx] - env_db[best] >= min_drop_db and not inside_word(t_best):
+            out.append(t_best)
         else:
             out.append(t)
     return sorted(out)

@@ -3,8 +3,8 @@
 Counterpart of ``audio_cut_tpu/pipeline/result.py``: the same keys, so the
 manifest builder reads either package's results. The precision guard
 passes when the cut shifts average at most 150 ms and their 95th percentile
-is at most 220 ms. The hybrid mode's metadata comes with that mode
-(ROADMAP.md, queue 1).
+is at most 220 ms. The hybrid mode's metadata and the per-segment lyrics come
+with those modes (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -56,6 +56,8 @@ class ResultBuilder:
         guard_shift_stats: Optional[Dict[str, float]] = None,
         guard_adjustments: Optional[List[Dict[str, float]]] = None,
         segment_classification_debug: Optional[List[Dict[str, Any]]] = None,
+        lyrics_alignment: Optional[Dict[str, Any]] = None,
+        boundary_detection: Optional[Dict[str, Any]] = None,
         suppressed_cut_points_sec: Optional[Sequence[float]] = None,
     ) -> Dict[str, Any]:
         flags = list(segment_vocal_flags or [])
@@ -87,6 +89,10 @@ class ResultBuilder:
             result["guard_adjustments"] = guard_adjustments
         if segment_classification_debug is not None:
             result["segment_classification_debug"] = segment_classification_debug
+        if lyrics_alignment is not None:
+            result["lyrics_alignment"] = lyrics_alignment
+        if boundary_detection is not None:
+            result["boundary_detection"] = boundary_detection
         if suppressed_cut_points_sec is not None:
             result["suppressed_cut_points_sec"] = [float(t) for t in suppressed_cut_points_sec]
         return result

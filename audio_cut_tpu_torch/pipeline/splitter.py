@@ -1,9 +1,12 @@
 """SmartSplitter: the mode-dispatch orchestrator.
 
 Counterpart of ``audio_cut_tpu/pipeline/splitter.py``. The port runs
-``v2.2_mdd`` (the default: pause detection, guards, layout, segments) and
-``vocal_separation`` (stems only); the other modes raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``v2.2_mdd`` (the default: pause detection, guards, layout, segments),
+``vpbd_acoustic`` and ``vpbd_asr`` (the unified candidate pool, the phrase
+scorer and the DP planner before the same guards and layout; ``vpbd_asr``
+with lyrics alignment off, the default) and ``vocal_separation`` (stems
+only); the other modes raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ KNOWN_MODES = (
 _NOT_PORTED = {
     "librosa_onset": "the other modes",
     "hybrid_mdd": "the other modes",
-    "vpbd_acoustic": "the other modes",
-    "vpbd_asr": "the other modes",
 }
 
 
@@ -61,7 +62,7 @@ class SmartSplitter:
                 f"'{_NOT_PORTED[mode]}'")
         Path(output_dir).mkdir(parents=True, exist_ok=True)
 
-        if mode == "v2.2_mdd":
+        if mode in ("v2.2_mdd", "vpbd_acoustic", "vpbd_asr"):
             from audio_cut_tpu_torch.pipeline.modes.pure_vocal import process_pure_vocal_split
 
             return process_pure_vocal_split(self, input_path, output_dir, mode=mode,

@@ -37,18 +37,32 @@
    launch K0 once. Before each path the script sets every launch count to 0
    and re-arms the library check (``reset_counts``), so each path shows K0
    as a fresh process would;
+   Then drives the vpbd modes the same way, on the same song with a loud
+   section of whole bars from ``CHORUS_S`` on (where the chorus-gated beat
+   candidates fall): ``mode="vpbd_acoustic"`` twice and ``mode="vpbd_asr"``
+   (lyrics alignment off, the default) once, each launching K1 3 times and
+   K2 once (K0 once in the phase), each splicing back exactly and carrying
+   the planner's ``boundary_detection`` (candidate counts with beat
+   candidates in the unified pool and a non-empty merged pool, selected
+   candidates, guard-shift metadata), ``cuts.final`` entries enriched with
+   their candidate's source, the ``auto_profile`` and the candidate debug
+   JSON; ``vpbd_asr`` carries ``note == "lyrics_unavailable:disabled"``.
+   Prints each call's wall time, style, anchor weights, candidate counts
+   and cuts, and the phase's peak memory;
 6. computes the detection bundle from the warm call's stems on the card and
    on the CPU (plain versions, float32) and holds every output of the card to
    the CPU's within the bounds of ``BUNDLE_TOL``, K2 on the main path's own
    spectrogram at its kernel bound, and the VAD segments equal; prints the
-   cut lists the host tail makes from each bundle;
+   cut lists the v2.2_mdd and the vpbd host tails make from each bundle, the
+   vpbd style of each, and which of the style, its inputs, the pool, the
+   planner's choice and the cuts are equal (printed, not held);
 7. runs the first slice's path, ``mode="vocal_separation"``, once, and one
    model window through the separator on the card (bfloat16, K1) and on the
    CPU (float32, plain versions) at SNR >= 30 dB;
-8. profiles one more warm v2.2_mdd call (``torch.profiler``): wall time, the
-   spans of the pass (load, separation, detection bundle, host tail,
-   export), the card's busy time, the kernels that take it and K1's and K2's
-   device time per launch;
+8. profiles one more warm v2.2_mdd call and one more warm vpbd_acoustic call
+   (on the song of the vpbd phase) (``torch.profiler``): wall time, the spans of the pass (load, separation,
+   detection bundle, host tail, export), the card's busy time, the kernels
+   that take it and K1's and K2's device time per launch;
 9. drives the training slice through its entry point,
    ``train_separator.main``: ConvTDF-large at full width from the packaged
    checkpoint, ``TRAIN_STEPS`` steps at batch 4 with the synthetic stem
@@ -92,10 +106,12 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SR = 44100
 SONG_S = 60.0
+CHORUS_S = 40.0  # the vpbd phase's song is loud from here on: 10 of its 30 bars
 CALLS = 2
 KERNEL_SOURCES = ("probe", "ola", "frame_stats")
 OLA_ATOL = 1e-5
@@ -155,6 +171,7 @@ BUNDLE_TOL = {
     "bpm": (1e-4, 0.0), "period_frames": (1e-4, 0.0), "phase_frames": (1e-4, 0.0),
     "tempo_strength": (0.0, 1e-4), "vocal_energy": (1e-5, 0.0),
 }
+VPBD_CALLS = 2  # vpbd_acoustic calls in the vpbd phase, then one vpbd_asr call
 SPANS = ("load", "separation", "detection_bundle", "host_tail", "export")
 STEP_SPANS = ("upload", "loss", "backward", "optimizer", "metrics")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -171,9 +188,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_song(duration_s: float, sr: int = SR, seed: int = 7):
+def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional[float] = None):
     """Synthetic song: harmonic vocal-like phrases over a percussive bed,
-    with quiet gaps (the generator of the repository's tests)."""
+    with quiet gaps (the generator of the repository's tests). With
+    ``chorus_s``, the bed is three times as loud from that time on and
+    carries a sustained chord: a high-energy section of whole bars, where
+    the vpbd pool's chorus-gated beat candidates fall."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -184,6 +204,10 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7):
         i = int(beat * sr)
         env = np.exp(-np.arange(min(2000, n - i)) / 300.0)
         audio[i:i + env.size] += 0.12 * env * rng.standard_normal(env.size)
+    if chorus_s is not None:
+        loud = t >= chorus_s
+        audio[loud] *= 3.0
+        audio[loud] += 0.2 * sum(np.sin(2 * np.pi * f * t[loud]) for f in (110.0, 138.6, 164.8))
     phrase = 0.0
     while phrase + 2.5 < duration_s:
         seg = (t >= phrase) & (t < phrase + 2.2)
@@ -853,13 +877,90 @@ def run_mdd(torch, dev, work: Path, audio):
     return launches, cap.last, m
 
 
+def check_vpbd(m, out: Path, audio, mode: str) -> None:
+    """What a vpbd call must carry beyond check_segments: the planner's
+    boundary detection with a non-empty merged pool (beat candidates in it,
+    for the unified pool on the song's loud bars), selected candidates and
+    guard-shift metadata, at least one final cut enriched with its
+    candidate's source, the auto profile, and the candidate debug JSON in
+    the export directory."""
+    check_segments(m, out, audio)
+    bd = m.get("boundary_detection") or {}
+    planner = bd.get("planner") or {}
+    counts = bd.get("candidate_counts") or {}
+    if "merged" not in counts or "final_time_by_raw_time" not in planner:
+        fail(f"{mode}: boundary_detection lacks candidate_counts or planner metadata: {bd}")
+    if counts["merged"] <= 0 or (counts.get("pool_mode") == "unified" and counts.get("beat", 0) <= 0):
+        fail(f"{mode}: candidate counts {counts}: expected a merged pool with beat candidates")
+    if planner.get("selected_count", 0) <= 0 or not bd.get("selected"):
+        fail(f"{mode}: the planner selected no candidate: {planner}")
+    if not any(isinstance(c, dict) and c.get("source") for c in m["cuts"]["final"]):
+        fail(f"{mode}: no entry of cuts.final carries its candidate's source: {m['cuts']['final']}")
+    if not (m.get("auto_profile") or {}).get("intent"):
+        fail(f"{mode}: no auto_profile in the manifest")
+    if not (out / "vpbd_candidates_debug.json").is_file():
+        fail(f"{mode}: vpbd_candidates_debug.json was not written")
+
+
+def run_vpbd(torch, dev, work: Path, audio):
+    """The vpbd modes through the entry point with no device, on the song
+    with a loud section (``song_chorus.wav``, ``audio``): vpbd_acoustic
+    twice, then vpbd_asr (lyrics alignment off, the default) once. Each call
+    launches K1 3 times and K2 once; the phase launches K0 once."""
+    from audio_cut_tpu_torch import separate_and_segment
+
+    song = work / "song_chorus.wav"
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the vpbd path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+    for call, mode in enumerate(["vpbd_acoustic"] * VPBD_CALLS + ["vpbd_asr"]):
+        out = work / f"vpbd{call}"
+        k1, k2 = K1.launches, K2.launches
+        t0 = time.perf_counter()
+        m = separate_and_segment(input_uri=str(song), export_dir=str(out), mode=mode)
+        wall = time.perf_counter() - t0
+        k1, k2 = K1.launches - k1, K2.launches - k2
+        print(f"{mode} call {call}: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, "
+              f"fused pass {m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, K1 launches {k1}, "
+              f"K2 launches {k2}")
+        if m["gpu"]["gpu_pipeline_device"] != "cuda":
+            fail(f"{mode}: gpu_pipeline_device is {m['gpu']['gpu_pipeline_device']!r}")
+        if k1 != 3 or k2 != 1:
+            fail(f"{mode}: K1 launched {k1} times and K2 {k2} times; expected 3 and 1 per call")
+        check_vpbd(m, out, audio, mode)
+        if mode == "vpbd_asr" and m.get("note") != "lyrics_unavailable:disabled":
+            fail(f"vpbd_asr: note {m.get('note')!r}, expected 'lyrics_unavailable:disabled'")
+        ap = m["auto_profile"].get("auto_profile", {})
+        bd = m["boundary_detection"]
+        print(f"{mode} call {call}: style {ap.get('style')} confidence {ap.get('confidence')} "
+              f"anchor weights {ap.get('anchor_weights')} features {ap.get('features')}; "
+              f"candidate_counts {bd['candidate_counts']}; planner {bd['planner']['planner']}, "
+              f"{bd['planner']['selected_count']} selected "
+              f"{[c['source'] for c in bd['selected']]}; note {m.get('note')}")
+        enriched = [c for c in m["cuts"]["final"] if isinstance(c, dict) and c.get("source")]
+        print(f"{mode} call {call}: {len(enriched)} of {len(m['cuts']['final'])} final cuts carry "
+              f"their candidate: {[(round(c['t'], 4), c['source']) for c in enriched]}")
+        print(f"{mode} call {call}: {len(m['segments'])} segments "
+              f"{[s['label'] for s in m['segments']]}, cuts (samples) {m['cuts']['samples']}, "
+              f"spliced back exactly; guard {m['guard']['shift_stats']}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"vpbd: launches in the {VPBD_CALLS + 1} calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the vpbd calls; expected once, at the first launch")
+    print(f"vpbd: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches
+
+
 def bundle_parity(torch, dev, warm, audio):
     """The detection half on the card against the CPU (plain versions, f32),
-    from the warm call's stems; then both cut lists from the host tail."""
+    from the warm call's stems; then the cut lists that the v2.2_mdd and the
+    vpbd host tails make from each bundle (printed, not held: the style's
+    thresholds and the DP's argmax may flip on differences within
+    BUNDLE_TOL)."""
     import numpy as np
 
     from audio_cut_tpu_torch.analysis import bundle as TB
-    from audio_cut_tpu_torch.config import get_config
+    from audio_cut_tpu_torch.config import get_config, get_config_manager
     from audio_cut_tpu_torch.models.vad import build_vad
     from audio_cut_tpu_torch.ops.frame_stats import spectral_stats, spectral_stats_reference
     from audio_cut_tpu_torch.ops.stft import stft
@@ -904,15 +1005,50 @@ def bundle_parity(torch, dev, warm, audio):
     if seg["card"] != seg["cpu"]:
         fail("the card's VAD segments differ from the CPU's")
     qc = get_config("v2_mdd.quality_control", {}) or {}
-    cuts = {}
-    for side, b in bundles.items():
-        plan = _plan_cuts(audio, SR, b, vads[side], vads[side], qc,
-                          qc.get("enforce_quiet_cut", {}) or {},
-                          qc.get("local_boundary_refine", {}) or {})
-        cuts[side] = plan["cut_samples"]
-        print(f"bundle: host tail fed the {side} bundle: cuts {plan['cut_samples']}, "
-              f"labels {['human' if f else 'music' for f in plan['flags']]}")
-    print(f"bundle: the two cut lists are equal: {cuts['card'] == cuts['cpu']}")
+    mgr = get_config_manager()
+    for mode in ("v2.2_mdd", "vpbd_acoustic"):
+        plans = {}
+        for side, b in bundles.items():
+            snapshot = mgr.snapshot()  # the vpbd tail sets runtime overrides, as in a call
+            try:
+                plans[side] = _plan_cuts(audio, SR, b, vads[side], vads[side], qc,
+                                         qc.get("enforce_quiet_cut", {}) or {},
+                                         qc.get("local_boundary_refine", {}) or {}, mode=mode)
+            finally:
+                mgr.restore(snapshot)
+            plan = plans[side]
+            style = ""
+            if plan["auto_profile"] is not None:
+                ap = plan["auto_profile"].get("auto_profile", {})
+                style = (f"style {ap.get('style')} confidence {ap.get('confidence')} anchors "
+                         f"{ap.get('anchor_weights')} features {ap.get('features')}; ")
+            print(f"bundle: {mode} host tail fed the {side} bundle: {style}cuts "
+                  f"{plan['cut_samples']}, labels {['human' if f else 'music' for f in plan['flags']]}")
+        card, cpu = plans["card"], plans["cpu"]
+        print(f"bundle: {mode}: the two cut lists are equal: "
+              f"{card['cut_samples'] == cpu['cut_samples']}")
+        if mode != "v2.2_mdd":
+            # what may flip on differences within BUNDLE_TOL: the style's inputs
+            # and thresholds, the pool, the DP's choice
+            ap_card = card["auto_profile"].get("auto_profile", {})
+            ap_cpu = cpu["auto_profile"].get("auto_profile", {})
+            bd_card, bd_cpu = card["boundary_detection"], cpu["boundary_detection"]
+            same = {
+                "style": ap_card.get("style") == ap_cpu.get("style"),
+                "style features": ap_card.get("features") == ap_cpu.get("features"),
+                "anchor weights": ap_card.get("anchor_weights") == ap_cpu.get("anchor_weights"),
+                "candidate counts": bd_card["candidate_counts"] == bd_cpu["candidate_counts"],
+                "selected times": ([c["t"] for c in bd_card["selected"]]
+                                   == [c["t"] for c in bd_cpu["selected"]]),
+                "cut samples": card["cut_samples"] == cpu["cut_samples"],
+            }
+            print(f"bundle: {mode}: card vs CPU, equal: {same}")
+            for c_card, c_cpu in zip(bd_card["selected"], bd_cpu["selected"]):
+                if c_card["t"] != c_cpu["t"]:
+                    print(f"bundle: {mode}: a selected candidate differs: card t "
+                          f"{c_card['t']!r} (detected {c_card.get('t_detected')!r}, "
+                          f"{c_card['source']}), CPU t {c_cpu['t']!r} (detected "
+                          f"{c_cpu.get('t_detected')!r}, {c_cpu['source']})")
 
 
 def run_separation(torch, dev, work: Path, audio):
@@ -993,24 +1129,26 @@ def _print_top(prefix: str, kernels, count: int) -> None:
         print(f"profile:   {prefix}{ms:8.3f} ms  {k:4d}x  {name[:110]}")
 
 
-def profile_call(torch, work: Path):
-    """One more warm v2.2_mdd call under torch.profiler: where its time goes."""
+def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wav"):
+    """One more warm call of ``mode`` on ``song`` under torch.profiler: where
+    its time goes."""
     from torch.profiler import ProfilerActivity, profile
 
     from audio_cut_tpu_torch import separate_and_segment
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(work / "prof"))
+        m = separate_and_segment(input_uri=str(work / song),
+                                 export_dir=str(work / f"prof_{mode}"), mode=mode)
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not m["success"]:
-        fail("profiled call failed")
+        fail(f"profiled {mode} call failed")
     events = prof.events()
     spans = {}
     for e in events:
         if e.name in SPANS and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    print(f"profile (warm v2.2_mdd call under torch.profiler): wall {wall_ms:.1f} ms; spans (ms): "
+    print(f"profile (warm {mode} call under torch.profiler): wall {wall_ms:.1f} ms; spans (ms): "
           + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in SPANS)
           + f"; fused pass (gpu_pipeline_compute_ms) {m['gpu']['gpu_pipeline_compute_ms']:.1f}")
     on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1018,22 +1156,22 @@ def profile_call(torch, work: Path):
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in on_card if e.name in SPANS}
     kernels = [e for e in on_card if e.name not in SPANS]
     if not kernels:
-        print("profile: device busy time not measured (the profiler recorded no kernels)")
+        print(f"profile ({mode}): device busy time not measured (the profiler recorded no kernels)")
         return
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    print(f"profile: card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"profile ({mode}): card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), {len(kernels)} kernel launches")
-    _print_top("", kernels, 12)
+    _print_top(f"{mode}: ", kernels, 12)
     for span, (a, b) in sorted(ranges.items(), key=lambda kv: kv[1]):
         inside = [e for e in kernels if a <= e.time_range.start and e.time_range.end <= b]
         busy = _union_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e3
-        print(f"profile: span {span} on the card: {(b - a) / 1e3:.1f} ms from its first kernel "
+        print(f"profile ({mode}): span {span} on the card: {(b - a) / 1e3:.1f} ms from its first kernel "
               f"to its last, {busy:.1f} ms busy, {len(inside)} kernel launches")
-        _print_top(f"{span}: ", inside, 6)
+        _print_top(f"{mode} {span}: ", inside, 6)
     for label, key in (("K1 windowed_ola_kernel", "windowed_ola_kernel"),
                        ("K2 spectral_stats_kernel", "spectral_stats_kernel")):
         per = [(e.time_range.end - e.time_range.start) / 1e3 for e in kernels if key in e.name]
-        print(f"profile: {label} on the main path, device time per launch (ms): "
+        print(f"profile ({mode}): {label}, device time per launch (ms): "
               f"{', '.join(f'{ms:.4f}' for ms in per)}")
 
 
@@ -1261,11 +1399,16 @@ def main() -> int:
         audio = make_song(SONG_S)
         write_wav(work / "song.wav", audio, SR, subtype="FLOAT")
         launches, warm, _ = run_mdd(torch, dev, work, audio)
+        chorus = make_song(SONG_S, chorus_s=CHORUS_S)
+        write_wav(work / "song_chorus.wav", chorus, SR, subtype="FLOAT")
+        run_vpbd(torch, dev, work, chorus)
+        del chorus
         bundle_parity(torch, dev, warm, audio)
         del warm
         run_separation(torch, dev, work, audio)
         one_window_parity(torch, dev, audio)
         profile_call(torch, work)
+        profile_call(torch, work, mode="vpbd_acoustic", song="song_chorus.wav")
         train_launches, report, ckpt = run_training(torch, dev, work)
         serve_checkpoint(torch, dev, report["trainer"], ckpt, audio)
         profile_step(torch, report["trainer"])

@@ -282,3 +282,30 @@ def test_first_launch_of_a_process_runs_the_library_check(cuda):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["1", "1", "True"]
+
+
+def test_vpbd_acoustic_on_the_card_launches_k1_and_k2(cuda, tmp_path):
+    """The vpbd mode through the entry point on the card, with the packaged
+    tiny ConvTDF: the fused pass launches K1 and K2, and the manifest carries
+    the planner's boundary detection and the auto profile."""
+    from conftest import make_song
+
+    from audio_cut_tpu_torch.api import separate_and_segment
+    from audio_cut_tpu_torch.io import write_wav
+    from audio_cut_tpu_torch.ops.frame_stats import K2
+    from audio_cut_tpu_torch.ops.ola import K1
+
+    audio, sr = make_song(12.0)
+    write_wav(tmp_path / "song.wav", audio, sr, subtype="FLOAT")
+    k1, k2 = K1.launches, K2.launches
+    m = separate_and_segment(
+        input_uri=str(tmp_path / "song.wav"), export_dir=str(tmp_path / "out"),
+        mode="vpbd_acoustic",
+        runtime_overrides={"enhanced_separation.backend": "convtdf",
+                           "enhanced_separation.convtdf.checkpoint": "packaged_tiny"})
+    assert m["success"] and m["gpu"]["gpu_pipeline_device"] == "cuda"
+    assert K1.launches > k1 and K2.launches == k2 + 1
+    assert m["boundary_detection"]["candidate_counts"]["merged"] > 0
+    assert "final_time_by_raw_time" in m["boundary_detection"]["planner"]
+    assert m["auto_profile"]["intent"]["profile"] == "auto"
+    assert (tmp_path / "out" / "vpbd_candidates_debug.json").exists()

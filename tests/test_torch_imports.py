@@ -109,11 +109,14 @@ def test_sharded_training_raises():
         make_loss_fn(sep, TrainConfig(), mesh=object())
 
 
-@pytest.mark.parametrize("mode, item", [
-    ("hybrid_mdd", "the other modes"),
-    ("librosa_onset", "the other modes"),
+@pytest.mark.parametrize("mode, overrides, item", [
+    pytest.param("hybrid_mdd", None, "the other modes", id="hybrid_mdd-the other modes"),
+    pytest.param("librosa_onset", None, "the other modes", id="librosa_onset-the other modes"),
+    # vpbd_asr runs with lyrics alignment off; on, it needs the lyrics providers
+    pytest.param("vpbd_asr", {"lyrics_alignment.enabled": True}, "the other modes",
+                 id="vpbd_asr-lyrics on-the other modes"),
 ])
-def test_modes_outside_the_slice_raise(tmp_path, mode, item):
+def test_modes_outside_the_slice_raise(tmp_path, mode, overrides, item):
     import numpy as np
 
     from audio_cut_tpu_torch.api import separate_and_segment
@@ -123,7 +126,7 @@ def test_modes_outside_the_slice_raise(tmp_path, mode, item):
     write_wav(song, np.zeros(4410, np.float32), 44100)
     with pytest.raises(NotImplementedError, match=item):
         separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
-                             mode=mode, device="cpu")
+                             mode=mode, device="cpu", runtime_overrides=overrides)
 
 
 def test_default_mode_options_outside_the_slice_raise(tmp_path):
