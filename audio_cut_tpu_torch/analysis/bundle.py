@@ -7,7 +7,8 @@ guard/refine dB grids, the classification activity envelope and, with a
 ConvVAD, its frame probabilities and the vocal energy. ``flatten_bundle``
 concatenates the outputs in sorted key order into one float32 tensor, so the
 host copies it once; ``unpack_bundle`` cuts the host copy back into a
-``DetectionBundle``.
+``DetectionBundle``. ``build_detection_bundle`` does the three over the
+stems of one separation; the fused pass and the staged path both call it.
 
 dB grids are decimated by ``DB_STRIDE`` samples (1.45 ms at 44.1 kHz); every
 consumer works on windows of 5 ms or more.
@@ -203,3 +204,30 @@ def unpack_bundle(
         vad_fps=vad_fps,
         vocal_energy=vocal_energy,
     )
+
+
+def build_detection_bundle(
+    mix_dev: torch.Tensor,
+    vocal_dev: torch.Tensor,
+    sr: int,
+    n_true: int,
+    *,
+    guard_win_ms: float = 80.0,
+    refine_win_ms: float = 5.0,
+    vad_model=None,
+) -> DetectionBundle:
+    """The bundle of the padded mix and the vocal, both on one device, with
+    ONE host copy. The vocal is cut to ``n_true`` and padded with exact zeros
+    to the mix's length, so every caller that passes the same stems gets the
+    same bits. Pass a ConvVAD as ``vad_model`` for its probabilities and the
+    vocal energy."""
+    statics = bundle_statics(sr, guard_win_ms, refine_win_ms)
+    with torch.inference_mode():
+        vocal = vocal_dev[..., :n_true]
+        vocal = torch.nn.functional.pad(vocal, (0, int(mix_dev.shape[-1]) - vocal.shape[-1]))
+        out = _bundle_fn(mix_dev, vocal, vad_model.net if vad_model is not None else None,
+                         sr, *statics)
+        flat, shapes = flatten_bundle(out)
+        # the only device-to-host copy; it waits for the device
+        flat_host = flat.cpu().numpy()
+    return unpack_bundle(flat_host, shapes, sr, n_true, statics, vad_model)

@@ -5,9 +5,9 @@ manifest schema. The ``device`` argument maps to
 ``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
 device and no explicit ``"cpu"`` the call raises. The port runs the default
 ``mode="v2.2_mdd"``, ``mode="vpbd_acoustic"``, ``mode="vpbd_asr"`` with lyrics
-alignment off, and ``mode="vocal_separation"``. The lyrics intent
-(``segments``/``alignment``), which turns lyrics alignment on, and the batch
-entry point come with the modes that use them (ROADMAP.md).
+alignment off, ``mode="hybrid_mdd"`` and ``mode="vocal_separation"``. The
+lyrics intent (``segments``/``alignment``), which turns lyrics alignment on,
+and the batch entry point come with the modes that use them (ROADMAP.md).
 
 The manifest's ``cuts.final`` enriches each final cut with its planner
 candidate and guard shift, as the JAX package's ``_build_final_cuts`` does,

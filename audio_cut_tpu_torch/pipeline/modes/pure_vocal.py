@@ -13,18 +13,23 @@ for every mode, the pure-music span candidates, ``finalize_cut_points``
 layout refinement, the local valley refine, the classification and weak-tail
 merge, the sample-exact split and the export.
 
-The port has one path. The JAX package's staged bundle with its retry and
-CPU-rebuild chain, and the host-waveform branches that run when no bundle
-exists, are not ported: ``device_pipeline.fused_program: false`` raises. So
-does ``vpbd_asr`` with lyrics alignment on (the lyrics providers, and with
+``device_pipeline.fused_program: false`` selects the JAX package's staged
+path. There it is a separate program with a retry, a rebuild from host
+arrays and a CPU run; in the port it is the same pass (separation, then
+``analysis/bundle.build_detection_bundle`` over the device stems) under the
+manifest label ``device_ola``, so both give the same bundle bit for bit. A
+failed bundle raises, so the bundle is never None and the JAX package's
+host-waveform fallbacks have no caller. When an enclosing ``hybrid_mdd`` run asks for it,
+the pass (audio, stems, bundle) is stashed on the splitter for that run.
+``vpbd_asr`` with lyrics alignment on raises (the lyrics providers, and with
 them the guard restore outside recognised words, are not ported); with it
 off, the default, ``vpbd_asr`` runs the acoustic path as in the JAX package.
-The ``hybrid_mdd`` memo comes with that mode (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -32,7 +37,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 from torch.profiler import record_function
 
-from audio_cut_tpu_torch.config import get_config, get_runtime_override_keys, set_runtime_config
+from audio_cut_tpu_torch.config import (
+    get_config,
+    get_config_manager,
+    get_runtime_override_keys,
+    set_runtime_config,
+)
 from audio_cut_tpu_torch.config.auto_profile import (
     build_auto_profile_overrides,
     derive_alignment_overrides,
@@ -75,18 +85,13 @@ def process_pure_vocal_split(
     mode: str,
     export_plan: Optional[Sequence[str]] = None,
 ) -> Dict[str, Any]:
-    if not bool(get_config("device_pipeline.fused_program", True)):
-        raise NotImplementedError(
-            "device_pipeline.fused_program=false (the staged bundle path and its fallback "
-            "chain) is not in the PyTorch port yet: ROADMAP.md, queue 1, 'the staged bundle "
-            "path and the engine fallback chain'")
     check_lyrics_alignment(mode)
     t0 = time.time()
     sr = splitter.sample_rate
     with record_function("load"):
         audio = splitter._load(input_path)
 
-    # -- separation + detection envelopes: one pass, one host copy ----------
+    # -- separation + detection envelopes: one host copy ---------------------
     from audio_cut_tpu_torch.models.vad import ConvVAD, build_vad
     from audio_cut_tpu_torch.separation import fused
 
@@ -97,11 +102,26 @@ def process_pure_vocal_split(
     eqc = qc.get("enforce_quiet_cut", {}) or {}
     lbr = qc.get("local_boundary_refine", {}) or {}
 
+    staged = not bool(get_config("device_pipeline.fused_program", True))
     sep, bundle = fused.separate_and_detect_fused(
         splitter.separator, vad_model, audio,
         guard_win_ms=float(eqc.get("win_ms", 80)),
         refine_win_ms=float(lbr.get("window_ms", 5)),
+        pipeline_mode="device_ola" if staged else "fused_single_program",
     )
+    # before the host tail: the vpbd modes set runtime overrides there, which
+    # bump the config generation that the memo's key holds
+    if splitter._want_fused_pass_memo:
+        # shared once with the enclosing hybrid_mdd run, which pops it, so
+        # the stems are never pinned past that run
+        key = fused_pass_key(input_path)
+        if key is not None:
+            splitter._fused_pass_memo = (key, audio, sep, bundle)
+    if bundle.vocal_energy is not None and len(audio):
+        # the confidence from the bundle's vocal energy: no stem download
+        e_mix = float(np.mean(np.square(audio))) + 1e-12
+        ratio = bundle.vocal_energy / e_mix
+        sep.separation_confidence = float(np.clip(1.0 - abs(ratio - 0.35) / 0.65, 0.1, 0.99))
     with record_function("host_tail"):
         plan = _plan_cuts(audio, sr, bundle, vad_detector, vad_model, qc, eqc, lbr,
                           mode=mode, output_dir=output_dir)
@@ -148,6 +168,17 @@ def process_pure_vocal_split(
     if plan["auto_profile"] is not None:
         result["auto_profile"] = plan["auto_profile"]
     return splitter.result_builder.add_separation_metadata(result, sep)
+
+
+def fused_pass_key(input_path: str):
+    """The memo's key: the file's identity and the config's generation, or
+    None when the file cannot be read."""
+    try:
+        st = os.stat(input_path)
+    except OSError:
+        return None
+    return (os.path.realpath(input_path), st.st_mtime_ns, st.st_size,
+            get_config_manager().generation())
 
 
 def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,

@@ -3,8 +3,8 @@
 Counterpart of ``audio_cut_tpu/pipeline/result.py``: the same keys, so the
 manifest builder reads either package's results. The precision guard
 passes when the cut shifts average at most 150 ms and their 95th percentile
-is at most 220 ms. The hybrid mode's metadata and the per-segment lyrics come
-with those modes (ROADMAP.md, queue 1).
+is at most 220 ms. The per-segment lyrics come with the lyrics providers
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -104,4 +104,22 @@ class ResultBuilder:
         result["backend_used"] = getattr(separation_result, "backend_used", None)
         result["separation_confidence"] = getattr(separation_result, "separation_confidence", None)
         result.update(dict(getattr(separation_result, "device_meta", {}) or {}))
+        return result
+
+    @staticmethod
+    def add_hybrid_metadata(
+        result: Dict[str, Any],
+        *,
+        lib_flags: Sequence[bool],
+        hybrid_config: Dict[str, Any],
+        beat_analysis: Optional[Dict[str, Any]] = None,
+        strategy: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        result["segment_lib_flags"] = list(lib_flags)
+        result["lib_segment_count"] = sum(1 for f in lib_flags if f)
+        result["hybrid_config"] = dict(hybrid_config)
+        if beat_analysis is not None:
+            result["beat_analysis"] = beat_analysis
+        if strategy is not None:
+            result["strategy"] = strategy
         return result

@@ -1,12 +1,14 @@
 """SmartSplitter: the mode-dispatch orchestrator.
 
 Counterpart of ``audio_cut_tpu/pipeline/splitter.py``. The port runs
-``v2.2_mdd`` (the default: pause detection, guards, layout, segments),
-``vpbd_acoustic`` and ``vpbd_asr`` (the unified candidate pool, the phrase
-scorer and the DP planner before the same guards and layout; ``vpbd_asr``
-with lyrics alignment off, the default) and ``vocal_separation`` (stems
-only); the other modes raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+``v2.2_mdd`` (the default: pause detection, guards, layout, segments; on the
+fused pass, or on the staged path with ``device_pipeline.fused_program:
+false``), ``vpbd_acoustic`` and ``vpbd_asr`` (the unified candidate pool,
+the phrase scorer and the DP planner before the same guards and layout;
+``vpbd_asr`` with lyrics alignment off, the default), ``hybrid_mdd`` (the
+``v2.2_mdd`` cuts snapped to beats, with _lib tags, on the sub-run's device
+pass) and ``vocal_separation`` (stems only); ``librosa_onset`` raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ KNOWN_MODES = (
 
 _NOT_PORTED = {
     "librosa_onset": "the other modes",
-    "hybrid_mdd": "the other modes",
 }
 
 
@@ -46,6 +47,10 @@ class SmartSplitter:
         self._export_format = str(get_config("output.format", "wav"))
         self._export_options = dict(get_config("output.wav", {}) or {})
         self._separator = None  # created on first use
+        # a hybrid_mdd run asks its v2.2_mdd sub-run to stash the device
+        # pass (key, audio, stems, bundle) here, and pops it
+        self._want_fused_pass_memo = False
+        self._fused_pass_memo = None
 
     def split_audio_seamlessly(
         self,
@@ -67,6 +72,10 @@ class SmartSplitter:
 
             return process_pure_vocal_split(self, input_path, output_dir, mode=mode,
                                             export_plan=export_plan)
+        if mode == "hybrid_mdd":
+            from audio_cut_tpu_torch.pipeline.modes.hybrid import process_hybrid_mdd
+
+            return process_hybrid_mdd(self, input_path, output_dir, export_plan=export_plan)
         from audio_cut_tpu_torch.pipeline.modes.separation_mode import process_vocal_separation
 
         return process_vocal_separation(self, input_path, output_dir, export_plan=export_plan)

@@ -18,7 +18,6 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 from torch.profiler import record_function
 
 
@@ -29,42 +28,33 @@ def separate_and_detect_fused(
     *,
     guard_win_ms: float = 80.0,
     refine_win_ms: float = 5.0,
+    pipeline_mode: str = "fused_single_program",
 ):
     """Returns (SeparationResult, DetectionBundle). ``vad_model`` is a
-    ``ConvVAD`` or None (energy gate: no VAD probabilities in the bundle)."""
-    from audio_cut_tpu_torch.analysis.bundle import (
-        _bundle_fn,
-        bundle_statics,
-        flatten_bundle,
-        unpack_bundle,
-    )
+    ``ConvVAD`` or None (energy gate: no VAD probabilities in the bundle).
+    ``pipeline_mode`` is the manifest's label: the JAX package's staged path
+    and hybrid_mdd's second pass report ``device_ola``, and run this same
+    pass in the port."""
+    from audio_cut_tpu_torch.analysis.bundle import build_detection_bundle
     from audio_cut_tpu_torch.separation.engine import SeparationResult
 
     audio = np.asarray(audio, dtype=np.float32)
     n = audio.shape[-1]
-    sr = engine.sample_rate
-    statics = bundle_statics(sr, guard_win_ms, refine_win_ms)
 
     t0 = time.time()
     with record_function("separation"):
         vocal_dev, inst_dev, mix_dev, meta = engine.separate_on_device(audio)
-    with record_function("detection_bundle"), torch.inference_mode():
-        padded_len = int(mix_dev.shape[-1])
-        vocal_pad = torch.nn.functional.pad(vocal_dev, (0, padded_len - n))
-        out = _bundle_fn(mix_dev, vocal_pad, vad_model.net if vad_model is not None else None,
-                         sr, *statics)
-        flat, shapes = flatten_bundle(out)
-        # the only device-to-host copy of the pass; it waits for the device
-        flat_host = flat.cpu().numpy()
+    with record_function("detection_bundle"):
+        bundle = build_detection_bundle(mix_dev, vocal_dev, engine.sample_rate, n,
+                                        guard_win_ms=guard_win_ms, refine_win_ms=refine_win_ms,
+                                        vad_model=vad_model)
     total_ms = round((time.time() - t0) * 1000.0, 3)
-    bundle = unpack_bundle(flat_host, shapes, sr, n, statics, vad_model)
 
     meta = dict(meta)
     meta.update({
         "gpu_pipeline_compute_ms": total_ms,
         "gpu_pipeline_total_ms": total_ms,
-        # the JAX package's name for separation + bundle + one flat download
-        "gpu_pipeline_mode": "fused_single_program",
+        "gpu_pipeline_mode": pipeline_mode,
     })
     result = SeparationResult(
         vocal_track=None,
@@ -77,7 +67,4 @@ def separate_and_detect_fused(
     result.instrumental_device = inst_dev
     result.mix_device = mix_dev
     result._mix_energy = float(np.mean(np.square(audio)))
-    if bundle.vocal_energy is not None:
-        ratio = bundle.vocal_energy / (result._mix_energy + 1e-12)
-        result.separation_confidence = float(np.clip(1.0 - abs(ratio - 0.35) / 0.65, 0.1, 0.99))
     return result, bundle

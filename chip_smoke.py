@@ -48,14 +48,31 @@
    their candidate's source, the ``auto_profile`` and the candidate debug
    JSON; ``vpbd_asr`` carries ``note == "lyrics_unavailable:disabled"``.
    Prints each call's wall time, style, anchor weights, candidate counts
-   and cuts, and the phase's peak memory;
+   and cuts, and the phase's peak memory.
+   Then drives ``mode="hybrid_mdd"`` the same way, once per strategy
+   (``snap_to_beat`` at the defaults, then ``beat_only``) on the song with
+   the loud section and on a song whose loud section from ``STOP_TIME_S``
+   is sung on the beat grid with silent rests (the loud bed of the first
+   leaks into the vocal stem, so no beat there passes the strategies'
+   quiet check): each call reuses its ``v2.2_mdd`` sub-run's device pass,
+   so it launches K1 3 times and K2 once (K0 once in the phase), splices
+   back exactly and names each segment's file with ``_lib`` exactly where
+   the result's lib flag is set; at least one segment of the phase carries
+   ``_lib``. Prints each call's wall time, its ``_lib`` count and cuts, and
+   the phase's peak memory;
 6. computes the detection bundle from the warm call's stems on the card and
    on the CPU (plain versions, float32) and holds every output of the card to
    the CPU's within the bounds of ``BUNDLE_TOL``, K2 on the main path's own
    spectrogram at its kernel bound, and the VAD segments equal; prints the
    cut lists the v2.2_mdd and the vpbd host tails make from each bundle, the
    vpbd style of each, and which of the style, its inputs, the pool, the
-   planner's choice and the cuts are equal (printed, not held);
+   planner's choice and the cuts are equal (printed, not held). Then the
+   staged bundle path: ``build_detection_bundle`` over the warm call's own
+   stems with the same ConvVAD must equal that call's fused bundle bit for
+   bit, and one call with ``device_pipeline.fused_program: false``, which
+   separates the song again, must launch K1 3 times and K2 once (K0 once),
+   report ``device_ola``, splice back exactly, and give the warm fused
+   call's bundle bit for bit and its cuts;
 7. runs the first slice's path, ``mode="vocal_separation"``, once, and one
    model window through the separator on the card (bfloat16, K1) and on the
    CPU (float32, plain versions) at SNR >= 30 dB;
@@ -172,6 +189,10 @@ BUNDLE_TOL = {
     "tempo_strength": (0.0, 1e-4), "vocal_energy": (1e-5, 0.0),
 }
 VPBD_CALLS = 2  # vpbd_acoustic calls in the vpbd phase, then one vpbd_asr call
+HYBRID_CASES = (("snap_to_beat", {}), ("beat_only", {"hybrid_mdd.lib_alignment": "beat_only"}))
+# the hybrid phase's second song: silent rests on the beat grid from here on
+# (song_chorus's loud bed leaks into the vocal stem, so no beat there is quiet)
+STOP_TIME_S = 40.0
 SPANS = ("load", "separation", "detection_bundle", "host_tail", "export")
 STEP_SPANS = ("upload", "loss", "backward", "optimizer", "metrics")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -188,19 +209,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional[float] = None):
+def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional[float] = None,
+              stop_time_s: Optional[float] = None):
     """Synthetic song: harmonic vocal-like phrases over a percussive bed,
     with quiet gaps (the generator of the repository's tests). With
     ``chorus_s``, the bed is three times as loud from that time on and
     carries a sustained chord: a high-energy section of whole bars, where
-    the vpbd pool's chorus-gated beat candidates fall."""
+    the vpbd pool's chorus-gated beat candidates fall. With ``stop_time_s``,
+    the bed stops from that time on and the voice, three times as loud,
+    sings 1.8 s phrases that start on the beat grid, 3 s apart: a
+    high-energy section whose rests are silent and hold two beats, the
+    first 0.2 s after the phrase's end, where hybrid_mdd's snap to a quiet
+    beat can take effect."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     n = int(duration_s * sr)
     t = np.arange(n, dtype=np.float64) / sr
     audio = np.zeros(n, dtype=np.float64)
-    for beat in np.arange(0.0, duration_s, 0.5):
+    for beat in np.arange(0.0, duration_s if stop_time_s is None else stop_time_s, 0.5):
         i = int(beat * sr)
         env = np.exp(-np.arange(min(2000, n - i)) / 300.0)
         audio[i:i + env.size] += 0.12 * env * rng.standard_normal(env.size)
@@ -210,15 +237,22 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional
         audio[loud] += 0.2 * sum(np.sin(2 * np.pi * f * t[loud]) for f in (110.0, 138.6, 164.8))
     phrase = 0.0
     while phrase + 2.5 < duration_s:
-        seg = (t >= phrase) & (t < phrase + 2.2)
+        sung = stop_time_s is not None and phrase >= stop_time_s
+        length = 1.8 if sung else 2.2
+        seg = (t >= phrase) & (t < phrase + length)
         f0 = 220.0 * (1 + 0.01 * np.sin(2 * np.pi * 5.5 * t[seg]))
         x = np.zeros(seg.sum())
         for h in range(1, 5):
             x += np.sin(2 * np.pi * h * np.cumsum(f0) / sr) / h
         fade = np.minimum(1.0, np.minimum(np.arange(seg.sum()) / (0.05 * sr),
                                           (seg.sum() - np.arange(seg.sum())) / (0.05 * sr)))
-        audio[seg] += 0.35 * x * fade
+        audio[seg] += 0.35 * x * fade * (3.0 if sung else 1.0)
+        if sung:
+            phrase += 3.0
+            continue
         phrase = phrase + 2.2 + 0.8 + 0.4 * rng.random()
+        if stop_time_s is not None and phrase >= stop_time_s:
+            phrase = float(np.ceil(phrase * 2.0)) / 2.0  # the first sung phrase starts on a beat
     return (0.9 * audio / np.abs(audio).max()).astype(np.float32)
 
 
@@ -951,6 +985,161 @@ def run_vpbd(torch, dev, work: Path, audio):
     return launches
 
 
+class _HybridResults:
+    """Wraps the port's ResultBuilder.add_hybrid_metadata to keep each hybrid
+    call's result (its per-segment lib flags); the call still runs it."""
+
+    def __init__(self):
+        from audio_cut_tpu_torch.pipeline.result import ResultBuilder
+
+        self.cls = ResultBuilder
+        self.inner = ResultBuilder.__dict__["add_hybrid_metadata"]
+        self.results = []
+
+    def __enter__(self):
+        inner = self.inner.__func__
+
+        def add_hybrid_metadata(result, **kwargs):
+            out = inner(result, **kwargs)
+            self.results.append(out)
+            return out
+
+        self.cls.add_hybrid_metadata = staticmethod(add_hybrid_metadata)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.add_hybrid_metadata = self.inner
+
+
+def run_hybrid(torch, dev, work: Path, songs):
+    """hybrid_mdd through the entry point with no device, once per strategy
+    of ``HYBRID_CASES`` on each of ``songs`` ({file name: audio}): the song
+    with a loud section, then the one whose loud section is sung on the beat
+    grid with silent rests. Each call reuses its v2.2_mdd sub-run's device
+    pass, so it launches K1 3 times and K2 once; the phase launches K0 once.
+    Each segment's file name carries ``_lib`` exactly where the result's lib
+    flag is set, and at least one segment of the phase carries it."""
+    from audio_cut_tpu_torch import separate_and_segment
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the hybrid path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+    lib_total = 0
+    calls = [(song, name, overrides) for song in songs for name, overrides in HYBRID_CASES]
+    with _HybridResults() as captured:
+        for call, (song, name, overrides) in enumerate(calls):
+            out = work / f"hybrid{call}"
+            k1, k2 = K1.launches, K2.launches
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / song), export_dir=str(out),
+                                     mode="hybrid_mdd", runtime_overrides=overrides)
+            wall = time.perf_counter() - t0
+            k1, k2 = K1.launches - k1, K2.launches - k2
+            label = f"hybrid_mdd call {call} ({song}, {name})"
+            print(f"{label}: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, fused pass "
+                  f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, K1 launches {k1}, K2 launches {k2}")
+            if m["gpu"]["gpu_pipeline_device"] != "cuda":
+                fail(f"{label}: gpu_pipeline_device is {m['gpu']['gpu_pipeline_device']!r}")
+            if k1 != 3 or k2 != 1:
+                fail(f"{label}: K1 launched {k1} times and K2 {k2} times; expected 3 and 1 per "
+                     f"call (one device pass, the sub-run's)")
+            check_segments(m, out, songs[song])
+            if len(captured.results) != call + 1:
+                fail(f"{label}: {len(captured.results)} hybrid results captured")
+            result = captured.results[-1]
+            lib = result["segment_lib_flags"]
+            names = [s["mix_path"] for s in m["segments"]]
+            if ["_lib" in n for n in names] != lib:
+                fail(f"{label}: segment names {names} disagree with lib flags {lib}")
+            lib_total += sum(lib)
+            print(f"{label}: strategy {result['strategy']}, {result['lib_segment_count']} _lib "
+                  f"segments of {len(names)}, beat analysis {result['beat_analysis']}; cuts "
+                  f"(samples) {m['cuts']['samples']}, segments {names}, spliced back exactly; "
+                  f"guard {m['guard']['shift_stats']}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"hybrid_mdd: launches in the {len(calls)} calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the hybrid calls; expected once, at the first launch")
+    if lib_total == 0:
+        fail("hybrid_mdd: no segment of the phase carries _lib")
+    print(f"hybrid_mdd: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
+
+
+def _unequal_fields(a, b) -> list:
+    """The DetectionBundle fields (and feature fields) of ``a`` and ``b``
+    that are not equal bit for bit. ``features.extras`` is left out: the
+    host tail writes into it."""
+    from dataclasses import fields
+
+    import numpy as np
+
+    unequal = []
+    for f in fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = ([(g.name, getattr(x, g.name), getattr(y, g.name)) for g in fields(x)
+                  if g.name != "extras"] if f.name == "features" else [(f.name, x, y)])
+        unequal += [name for name, u, v in pairs
+                    if not np.array_equal(np.asarray(u), np.asarray(v))]
+    return unequal
+
+
+def staged_check(torch, dev, work: Path, warm, warm_m, audio):
+    """The staged bundle path (device_pipeline.fused_program: false). First
+    the bundle over the warm v2.2_mdd call's own stems, through the bundle
+    function, with the same ConvVAD: every array must equal the fused pass's
+    bit for bit. Then one call on the staged path through the entry point,
+    which separates the song again: K1 3 times and K2 once,
+    gpu_pipeline_mode device_ola, the exact splice, the bundle that reached
+    its host tail equal to the warm fused call's bit for bit, and the same
+    cuts."""
+    from dataclasses import fields
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.analysis.bundle import build_detection_bundle
+    from audio_cut_tpu_torch.models.vad import build_vad
+    from audio_cut_tpu_torch.separation import fused
+
+    sep, fused_bundle = warm
+    rebuilt = build_detection_bundle(sep.mix_device, sep.vocal_device, SR, audio.size,
+                                     vad_model=build_vad(SR, dev))
+    unequal = _unequal_fields(fused_bundle, rebuilt)
+    print(f"staged: build_detection_bundle over the warm call's stems against its fused bundle: "
+          f"{len(fields(fused_bundle)) - 1} fields and {len(fields(fused_bundle.features)) - 1} "
+          f"feature fields, bit for bit equal: {not unequal}")
+    if unequal:
+        fail(f"the rebuilt bundle differs from the fused one in {unequal}")
+    del rebuilt
+
+    kernels = reset_counts()  # the staged path starts: only its launches count
+    out = work / "staged"
+    with _Capture(fused) as cap:
+        t0 = time.perf_counter()
+        m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                 runtime_overrides={"device_pipeline.fused_program": False})
+        wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"staged v2.2_mdd call: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, "
+          f"gpu_pipeline_mode {m['gpu']['gpu_pipeline_mode']}, pass "
+          f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, launches {launches}")
+    if m["gpu"]["gpu_pipeline_mode"] != "device_ola" or m["gpu"]["gpu_pipeline_device"] != "cuda":
+        fail(f"staged call: gpu {m['gpu']}; expected device_ola on cuda")
+    if launches["K1"] != 3 or launches["K2"] != 1 or launches["K0"] != 1:
+        fail(f"staged call: launches {launches}; expected K1 3, K2 1 and K0 once")
+    check_segments(m, out, audio)
+    if cap.last is None:
+        fail("staged call: no bundle captured")
+    unequal = _unequal_fields(fused_bundle, cap.last[1])
+    print(f"staged: the staged call's bundle (its own separation) against the warm fused "
+          f"call's, bit for bit equal: {not unequal}")
+    if unequal:
+        fail(f"the staged call's bundle differs from the warm fused call's in {unequal}")
+    cuts, fused_cuts = m["cuts"]["samples"], warm_m["cuts"]["samples"]
+    print(f"staged: cuts (samples) {cuts}; the warm fused call's {fused_cuts}; "
+          f"equal {cuts == fused_cuts}")
+    if cuts != fused_cuts:
+        fail("the staged call's cuts differ from the warm fused call's")
+
+
 def bundle_parity(torch, dev, warm, audio):
     """The detection half on the card against the CPU (plain versions, f32),
     from the warm call's stems; then the cut lists that the v2.2_mdd and the
@@ -1398,12 +1587,16 @@ def main() -> int:
     try:
         audio = make_song(SONG_S)
         write_wav(work / "song.wav", audio, SR, subtype="FLOAT")
-        launches, warm, _ = run_mdd(torch, dev, work, audio)
+        launches, warm, warm_m = run_mdd(torch, dev, work, audio)
         chorus = make_song(SONG_S, chorus_s=CHORUS_S)
         write_wav(work / "song_chorus.wav", chorus, SR, subtype="FLOAT")
         run_vpbd(torch, dev, work, chorus)
-        del chorus
+        stop = make_song(SONG_S, stop_time_s=STOP_TIME_S)
+        write_wav(work / "song_stop.wav", stop, SR, subtype="FLOAT")
+        run_hybrid(torch, dev, work, {"song_chorus.wav": chorus, "song_stop.wav": stop})
+        del chorus, stop
         bundle_parity(torch, dev, warm, audio)
+        staged_check(torch, dev, work, warm, warm_m, audio)
         del warm
         run_separation(torch, dev, work, audio)
         one_window_parity(torch, dev, audio)

@@ -17,6 +17,9 @@ Tolerances, by what each output sums:
 * the vocal energy (a float32 sum of 661,504 squares): rtol 1e-5.
 The flat layout (sorted keys, shapes) equals the JAX package's, and both
 packages' ``unpack_bundle`` give equal arrays from the same flat copy.
+``build_detection_bundle`` (the bundle, its one host copy and the unpack)
+agrees with the JAX package's within the same bounds, given the vocal cut
+to its true length, which it pads with zeros as the JAX caller does.
 """
 
 import importlib
@@ -121,3 +124,35 @@ def test_flat_layout_and_unpack_equal_jax(bundles):
         np.testing.assert_array_equal(getattr(tb.features, name), getattr(jb.features, name))
     for name in ("bpm", "tempo_strength", "hop_s", "duration_s"):
         assert getattr(tb.features, name) == getattr(jb.features, name)
+
+
+def test_build_detection_bundle_matches_jax(bundles):
+    from dataclasses import fields
+
+    jax_vad, torch_vad, _, _, _, _, _, _ = bundles
+    mix, vocal = _pair()
+    jb = JB.build_detection_bundle(jnp.asarray(mix), jnp.asarray(vocal), SR, N_TRUE,
+                                   vad_model=jax_vad)
+    tb = TB.build_detection_bundle(torch.from_numpy(mix), torch.from_numpy(vocal[:N_TRUE]), SR,
+                                   N_TRUE, vad_model=torch_vad)
+    for name in ("vocal_rms_grid", "vocal_rms_fine", "vocal_db_guard", "mix_db_guard",
+                 "mix_db_refine", "vocal_db_fine", "act_rms", "vad_probs", "vocal_energy"):
+        got, want = np.asarray(getattr(tb, name)), np.asarray(getattr(jb, name))
+        assert got.shape == want.shape, name
+        rtol, atol = TOL[name]
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+    for name in ("rms", "flatness", "onset", "mdd"):
+        rtol, atol = TOL[name]
+        np.testing.assert_allclose(getattr(tb.features, name), getattr(jb.features, name),
+                                   rtol=rtol, atol=atol, err_msg=name)
+    assert abs(tb.features.bpm - jb.features.bpm) <= TOL["bpm"][0] * abs(jb.features.bpm)
+    assert abs(tb.features.tempo_strength - jb.features.tempo_strength) <= TOL["tempo_strength"][1]
+    # the beats follow the tempo's period and phase, within their 1e-4 over 10 s
+    assert tb.features.beat_times.shape == jb.features.beat_times.shape
+    np.testing.assert_allclose(tb.features.beat_times, jb.features.beat_times, rtol=0.0,
+                               atol=1e-4 * N_TRUE / SR)
+    for f in fields(jb):
+        if f.name not in ("features", "vocal_rms_grid", "vocal_rms_fine", "vocal_db_guard",
+                          "mix_db_guard", "mix_db_refine", "vocal_db_fine", "act_rms",
+                          "vad_probs", "vocal_energy"):
+            assert getattr(tb, f.name) == getattr(jb, f.name), f.name
