@@ -4,11 +4,13 @@ A second package beside the JAX reference: the same functions in PyTorch,
 with every Pallas kernel of the reference rewritten by hand for NVIDIA Hopper
 (``csrc/``). Entry points run on CUDA unless the caller passes ``device="cpu"``.
 It runs ``separate_and_segment()`` in its default ``v2.2_mdd`` mode (ConvTDF
-separation, the detection bundle with ConvVAD, the host cutting tail), on
-the fused pass or, with ``device_pipeline.fused_program: false``, on the
-staged path; in ``vpbd_acoustic`` and ``vpbd_asr`` (lyrics alignment off);
-in ``hybrid_mdd`` (beat-snapped cuts with _lib tags); and in
-``vocal_separation``. ROADMAP.md lists what comes next.
+or spectral-mask separation, the detection bundle with ConvVAD, the host
+cutting tail), on the fused pass or, with ``device_pipeline.fused_program:
+false``, on the staged path; in ``vpbd_acoustic`` and ``vpbd_asr`` (with
+lyric priors from an ASR provider when lyrics alignment is on, as the intent
+arguments ``segments=``/``alignment=`` turn it); in ``hybrid_mdd``
+(beat-snapped cuts with _lib tags); and in ``vocal_separation``. ROADMAP.md
+lists what comes next.
 """
 
 from audio_cut_tpu_torch.api import separate_and_segment

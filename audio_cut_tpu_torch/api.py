@@ -4,10 +4,16 @@ Counterpart of ``audio_cut_tpu/api.py``, with the same signature and
 manifest schema. The ``device`` argument maps to
 ``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
 device and no explicit ``"cpu"`` the call raises. The port runs the default
-``mode="v2.2_mdd"``, ``mode="vpbd_acoustic"``, ``mode="vpbd_asr"`` with lyrics
-alignment off, ``mode="hybrid_mdd"`` and ``mode="vocal_separation"``. The
-lyrics intent (``segments``/``alignment``), which turns lyrics alignment on,
-and the batch entry point come with the modes that use them (ROADMAP.md).
+``mode="v2.2_mdd"``, ``mode="vpbd_acoustic"``, ``mode="vpbd_asr"``,
+``mode="hybrid_mdd"`` and ``mode="vocal_separation"``. The intent arguments
+(``segments``/``alignment``) default the mode to ``vpbd_asr`` and turn
+lyrics alignment on (provider ``auto``, not strict) before
+``runtime_overrides`` apply; the manifest then echoes the resolved
+``intent``. Where lyrics were aligned, each manifest segment carries the
+words it holds. The batch entry point is not in the port yet (ROADMAP.md).
+
+Unlike the JAX package, a failure of the manifest's lyrics attach raises
+instead of leaving the segments without lyrics.
 
 The manifest's ``cuts.final`` enriches each final cut with its planner
 candidate and guard shift, as the JAX package's ``_build_final_cuts`` does,
@@ -23,6 +29,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 from audio_cut_tpu_torch.config import get_config_manager
+from audio_cut_tpu_torch.config.auto_profile import resolve_smart_cut_intent
 from audio_cut_tpu_torch.config.manager import get_nested, set_nested
 from audio_cut_tpu_torch.pipeline.qa import build_qa_report
 from audio_cut_tpu_torch.pipeline.splitter import SmartSplitter
@@ -61,28 +68,40 @@ def separate_and_segment(
     runtime_overrides: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Separate + segment one track and emit a manifest."""
-    if segments is not None or alignment is not None:
-        raise NotImplementedError(
-            "the lyrics intent (segments=/alignment=) is not in the PyTorch port yet: "
-            "ROADMAP.md, queue 1, 'the other modes'")
     input_path = Path(input_uri).expanduser().resolve()
     if not input_path.exists():
         raise FileNotFoundError(f"input audio not found: {input_path}")
     export_path = Path(export_dir).expanduser().resolve()
 
-    effective_mode = mode or "v2.2_mdd"
+    has_intent = segments is not None or alignment is not None
+    effective_mode = mode or ("vpbd_asr" if has_intent else "v2.2_mdd")
+
+    overrides: Dict[str, Any] = {}
+    if has_intent:
+        overrides.update({
+            "lyrics_alignment.enabled": True,
+            "lyrics_alignment.provider": "auto",
+            "lyrics_alignment.strict": False,
+        })
+        if segments is not None:
+            overrides["smart_cut.segments"] = segments
+        if alignment is not None:
+            overrides["smart_cut.alignment"] = alignment
+    overrides.update(dict(runtime_overrides or {}))
 
     mgr = get_config_manager()
     snapshot = mgr.snapshot()
     try:
         _apply_call_overrides(mgr, device=device, strict_gpu=strict_gpu,
-                              layout=layout, overrides=runtime_overrides)
+                              layout=layout, overrides=overrides)
         torch_device = resolve_device(get_nested(mgr.config, "gpu_pipeline.prefer_device", "cuda"))
         export_path.mkdir(parents=True, exist_ok=True)
 
         layout_cfg = copy.deepcopy(get_nested(mgr.config, "segment_layout", {}) or {})
         sample_rate = int(get_nested(mgr.config, "audio.sample_rate", 44100))
         channels = int(get_nested(mgr.config, "audio.channels", 1))
+        intent_echo = (resolve_smart_cut_intent(get_nested(mgr.config, "smart_cut", {}) or {})
+                       if has_intent else None)
 
         splitter = SmartSplitter(torch_device, sample_rate=sample_rate)
         result = splitter.split_audio_seamlessly(
@@ -91,6 +110,8 @@ def separate_and_segment(
             mode=effective_mode,
             export_plan=list(export_types) if export_types is not None else None,
         )
+        if intent_echo is not None:
+            result.setdefault("intent", intent_echo)
     finally:
         mgr.restore(snapshot)
 
@@ -214,6 +235,14 @@ def _build_segments(result: Mapping[str, Any], export_dir: Path) -> List[Dict[st
         if idx < len(debug) and debug[idx]:
             entry["debug"] = debug[idx]
         segments.append(entry)
+
+    lyrics = result.get("lyrics_alignment")
+    if isinstance(lyrics, Mapping) and isinstance(lyrics.get("timeline"), Mapping):
+        from audio_cut_tpu_torch.lyrics.models import LyricsTimeline
+        from audio_cut_tpu_torch.lyrics.segment_attach import attach_lyrics_to_segments
+
+        timeline = LyricsTimeline.from_dict(dict(lyrics["timeline"]), strict=False)
+        return attach_lyrics_to_segments(segments, timeline)
     return segments
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``audio_cut_tpu/cutting/refine.py``: score-ordered min-gap
 NMS with per-window caps, the vocal-then-mix guard stages, the rightward
-quiet search, the boundary/min-gap filter, ``CutAdjustment`` bookkeeping and
-the suppressed points. Host numpy, as in the JAX package.
+quiet search, the boundary/min-gap filter, ``CutAdjustment`` bookkeeping,
+the suppressed points, and ``vpbd_asr``'s restore of guard moves that land
+inside a recognised word. Host numpy, as in the JAX package.
 
 The quiet guards read the detection bundle's decimated dB grids
 (``QuietLookup(db_grid=...)``); the port has no host-waveform lookup, so
@@ -14,7 +15,7 @@ zero-crossing snap runs on the host mix, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -282,6 +283,85 @@ def merge_word_intervals(word_intervals) -> List[Tuple[float, float]]:
         else:
             merged.append((a, b))
     return merged
+
+
+def inside_word_check(word_intervals) -> Callable[[float], bool]:
+    """A predicate: is ``t`` strictly inside one of the (merged) words?"""
+    if not word_intervals:
+        return lambda t: False
+    iv = merge_word_intervals(word_intervals)  # overlapping words happen
+    word_starts = np.asarray([a for a, _ in iv])
+    word_ends = np.asarray([b for _, b in iv])
+
+    def inside(t: float) -> bool:
+        k = int(np.searchsorted(word_starts, t, side="right")) - 1
+        return k >= 0 and word_starts[k] < t < word_ends[k]
+
+    return inside
+
+
+def restore_guards_outside_words(
+    cut_times: Sequence[float],
+    adjustments: Sequence[CutAdjustment],
+    word_intervals: Sequence[Tuple[float, float]],
+    *,
+    duration_s: float,
+    sr: int,
+    min_gap_s: float,
+) -> Tuple[List[float], Optional[List[CutAdjustment]], int]:
+    """Undo guard moves that push a boundary from outside an ASR word into one.
+
+    Applied on ``vpbd_asr`` only: a quiet-guard shift is meant to land in
+    silence; if it lands strictly inside a recognised word while the raw
+    candidate was outside every word, the raw time was the better boundary.
+    Each restore must keep the min-gap invariant against its neighbours;
+    restored adjustments become zero-shift entries, so the guard statistics
+    stay honest.
+
+    Returns (times, adjustments or None when unchanged, restored count).
+    """
+    times = sorted(float(t) for t in cut_times)
+    if not times or not adjustments or not word_intervals:
+        return times, None, 0
+
+    _inside = inside_word_check(word_intervals)
+
+    def _key(t: float) -> int:
+        return int(round(t * sr))
+
+    points = sorted({_key(t) for t in times if 0 < _key(t) < _key(duration_s)})
+    min_gap = max(0, int(round(min_gap_s * sr)))
+    restored_raw: set = set()
+
+    for adj in adjustments:
+        raw_t, final_t = float(adj.raw_time), float(adj.final_time)
+        if not _inside(final_t) or _inside(raw_t):
+            continue
+        raw_sample, final_sample = _key(raw_t), _key(final_t)
+        if final_sample not in points or raw_sample in (0, _key(duration_s)):
+            continue
+        candidate = sorted(raw_sample if p == final_sample else p for p in points)
+        idx = candidate.index(raw_sample)
+        left_ok = idx == 0 or candidate[idx] - candidate[idx - 1] >= min_gap
+        right_ok = idx == len(candidate) - 1 or candidate[idx + 1] - candidate[idx] >= min_gap
+        if not (left_ok and right_ok):
+            continue
+        points = candidate
+        restored_raw.add(raw_t)
+
+    if not restored_raw:
+        return times, None, 0
+
+    new_adjustments = [
+        CutAdjustment(
+            raw_time=a.raw_time, guard_time=a.raw_time, final_time=a.raw_time,
+            score=a.score, guard_shift_ms=0.0, final_shift_ms=0.0,
+        )
+        if float(a.raw_time) in restored_raw
+        else a
+        for a in adjustments
+    ]
+    return [p / float(sr) for p in points], new_adjustments, len(restored_raw)
 
 
 def guard_shift_stats(adjustments: Sequence[CutAdjustment]) -> Dict[str, float]:

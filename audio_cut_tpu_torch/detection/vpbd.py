@@ -8,15 +8,25 @@ valley anchor times, the DP planner and the optional candidate debug JSON.
 ``vpbd.candidate_pool: legacy`` pins the acoustic-only pool.
 
 The detector reads the detection bundle of the fused pass and never the
-waveform. Lyrics alignment is off by default; ``vpbd_asr`` then runs the
-acoustic path as the JAX package does (``note = "lyrics_unavailable:disabled"``,
-effective mode ``vpbd.fallback_mode``). Lyrics alignment on needs the lyrics
-providers, which are not in the port yet: it raises ``NotImplementedError``.
+host waveform. ``vpbd_asr`` with ``lyrics_alignment.enabled`` aligns lyrics
+through the configured provider (``lyrics/providers.py``) over a 16 kHz
+PCM_16 copy of the vocal stem, made on the stem's device
+(``io/audio.write_asr_copy_from_device``); the timeline's words, sentences
+and mVAD regions then add lyric candidates to the pool. Without a timeline
+(lyrics off, no provider, an unavailable provider or a provider that fails)
+``vpbd_asr`` runs the acoustic path (effective mode ``vpbd.fallback_mode``)
+with ``note = "lyrics_unavailable:<reason>"``; ``lyrics_alignment.strict``
+raises instead.
+
+Unlike the JAX package, the device ASR copy has no host fallback, and it
+runs outside the ``try`` that turns a provider's failure into
+``provider_error``: a failed copy raises, strict or not.
 """
 
 from __future__ import annotations
 
 import logging
+import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,19 +50,16 @@ from audio_cut_tpu_torch.cutting.planner import (
 )
 from audio_cut_tpu_torch.cutting.scorer import PhraseBoundaryScorer, write_candidate_debug_json
 from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
+from audio_cut_tpu_torch.exceptions import LyricsAlignmentUnavailable
+from audio_cut_tpu_torch.lyrics.candidates import LyricsBoundaryCandidateGenerator
 from audio_cut_tpu_torch.lyrics.models import LyricsTimeline
+from audio_cut_tpu_torch.lyrics.providers import (
+    AlignRequest,
+    NullLyricsProvider,
+    build_lyrics_provider,
+)
 
 logger = logging.getLogger(__name__)
-
-LYRICS_NOT_PORTED = (
-    "lyrics_alignment.enabled=true needs the lyrics providers (vpbd_asr with lyric "
-    "priors), which are not in the PyTorch port yet: ROADMAP.md, queue 1, 'the other modes'")
-
-
-def check_lyrics_alignment(mode: str) -> None:
-    """Raise when ``mode`` would align lyrics: the providers are not ported."""
-    if mode == "vpbd_asr" and bool(get_config("lyrics_alignment.enabled", False)):
-        raise NotImplementedError(LYRICS_NOT_PORTED)
 
 
 @dataclass
@@ -87,8 +94,11 @@ class VocalPhraseBoundaryDetector:
         duration_s: float,
         bundle,
         output_dir: Optional[str] = None,
+        vocal_device=None,
     ) -> VPBDDetectionResult:
-        """Candidates, scores and the plan, from the bundle's envelopes."""
+        """Candidates, scores and the plan, from the bundle's envelopes.
+        ``vocal_device`` is the vocal stem on its device, from which
+        ``vpbd_asr`` makes the ASR copy when it aligns lyrics."""
         effective_mode = mode
         timeline: Optional[LyricsTimeline] = None
         lyrics_meta: Optional[Dict[str, Any]] = None
@@ -96,7 +106,7 @@ class VocalPhraseBoundaryDetector:
 
         # -- lyrics priors (vpbd_asr only) -----------------------------------
         if mode == "vpbd_asr":
-            timeline, lyrics_meta, fallback_reason = self._align_lyrics()
+            timeline, lyrics_meta, fallback_reason = self._align_lyrics(vocal_device, duration_s)
             if timeline is None:
                 effective_mode = str(get_config("vpbd.fallback_mode", "vpbd_acoustic"))
                 note = f"lyrics_unavailable:{fallback_reason}"
@@ -135,9 +145,13 @@ class VocalPhraseBoundaryDetector:
                 base_score=float(bc_cfg.get("base_score", 0.3)),
             )
 
-        # lyric candidates need a timeline with words, which only the lyrics
-        # providers give (check_lyrics_alignment): the pool holds none here
         lyric_pool: List[CutCandidate] = []
+        if (
+            pool_mode != "legacy"
+            and effective_mode == "vpbd_asr"
+            and (timeline.words or timeline.sentences or timeline.vad_regions)
+        ):
+            lyric_pool = LyricsBoundaryCandidateGenerator().generate(timeline)
         pool = merge_candidate_pool([acoustic, beat_pool, lyric_pool], cluster_ms=120.0)
         counts = {
             "acoustic": len(acoustic),
@@ -190,12 +204,51 @@ class VocalPhraseBoundaryDetector:
 
     # -- helpers -------------------------------------------------------------
 
-    @staticmethod
-    def _align_lyrics() -> Tuple[Optional[LyricsTimeline], Optional[Dict[str, Any]], Optional[str]]:
-        """(timeline, lyrics meta, fallback reason). With lyrics alignment
-        off, no timeline and the reason ``disabled``."""
-        check_lyrics_alignment("vpbd_asr")
-        return None, None, "disabled"
+    def _align_lyrics(
+        self, vocal_device, duration_s: float
+    ) -> Tuple[Optional[LyricsTimeline], Optional[Dict[str, Any]], Optional[str]]:
+        """(timeline, lyrics meta, fallback reason); no timeline when
+        lyrics alignment is off, has no provider, or its provider is
+        unavailable or fails, unless ``lyrics_alignment.strict``."""
+        enabled = bool(get_config("lyrics_alignment.enabled", False))
+        strict = bool(get_config("lyrics_alignment.strict", False))
+        if not enabled:
+            return None, None, "disabled"
+        provider = build_lyrics_provider(strict=strict)
+        if isinstance(provider, NullLyricsProvider) and not strict:
+            return None, {"provider": provider.name, "fallback_reason": "no_provider"}, "no_provider"
+        unavailable = (None, {"provider": provider.name, "fallback_reason": "unavailable"},
+                       "unavailable")
+        if not provider.available():
+            if strict:
+                raise LyricsAlignmentUnavailable(f"provider {provider.name} unavailable")
+            return unavailable
+        from audio_cut_tpu_torch.io.audio import write_asr_copy_from_device
+
+        with tempfile.TemporaryDirectory() as td:
+            asr_path = str(Path(td) / "vocal_16k.wav")
+            # on the stem's device; its failure is no provider's and raises
+            write_asr_copy_from_device(vocal_device, self.sr, asr_path)
+            try:
+                timeline = provider.align(AlignRequest(audio_path=asr_path, duration_s=duration_s))
+            except LyricsAlignmentUnavailable:
+                if strict:
+                    raise
+                return unavailable
+            except Exception as exc:  # an external ASR worker failed: degrade
+                if strict:
+                    raise
+                logger.warning("lyrics provider failed: %s", exc)
+                return None, {"provider": provider.name,
+                              "fallback_reason": str(exc)[:200]}, "provider_error"
+        timeline.duration_s = timeline.duration_s or duration_s
+        meta = {
+            "provider": provider.name,
+            "timeline": timeline.to_dict(),
+            "word_count": len(timeline.words),
+            "sentence_count": len(timeline.sentences),
+        }
+        return timeline, meta, None
 
     @staticmethod
     def _mdd_valley_times(features: TrackFeatures) -> List[float]:

@@ -1,10 +1,13 @@
 """Audio load/save/resample helpers (host side).
 
 Counterpart of ``audio_cut_tpu/io/audio.py``: WAV decode through the port's
-own codec, mono mix, and polyphase resampling with
-``scipy.signal.resample_poly`` in float32, as the JAX package does. The
-ffmpeg decode of compressed formats and the device ASR copy are not part of
-this slice of the port (ROADMAP.md, queue 1).
+own codec, mono mix, polyphase resampling with ``scipy.signal.resample_poly``
+in float32, as the JAX package does, and the 16 kHz PCM_16 copy an ASR
+worker reads, made from a stem on its device (``write_asr_copy_from_device``).
+The JAX package's host copy (``write_asr_copy``) is its fallback when the
+device copy fails; the port has no such fallback, so it has no host copy.
+The ffmpeg decode of compressed formats is not part of the port yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 from scipy import signal as _signal
 
 from audio_cut_tpu_torch.exceptions import AudioIOError
-from audio_cut_tpu_torch.io.wavio import read_wav, write_wav
+from audio_cut_tpu_torch.io.wavio import read_wav, write_wav, write_wav_payload
 
 _SUPPORTED_EXTS = {".wav", ".wave"}
 
@@ -76,4 +79,33 @@ def save_audio(
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     write_wav(p, audio, sample_rate, subtype=subtype)
+    return str(p)
+
+
+def write_asr_copy_from_device(
+    audio_device,
+    sample_rate: int,
+    dest: Union[str, Path],
+    asr_sr: int = 16000,
+) -> str:
+    """The ASR copy from a stem on its device: resampled to ``asr_sr`` by one
+    float32 matrix product (``ops/resample.py``) and rounded to PCM_16 there
+    (``ops/pcm.py``), so only int16 at 16 kHz crosses to the host. The stem
+    is zero-padded to ``padded_track_len`` first, as in the JAX package; the
+    padding's filter bleed lies past the copy's length, which the host slices
+    to."""
+    import torch.nn.functional as F
+
+    from audio_cut_tpu_torch.ops.pcm import pcm16_pack_graph
+    from audio_cut_tpu_torch.ops.resample import resample_graph
+    from audio_cut_tpu_torch.separation.engine import padded_track_len
+
+    n = int(audio_device.shape[-1])
+    padded = padded_track_len(n, sample_rate)
+    out_len = int(round(n * asr_sr / sample_rate))
+    xp = F.pad(audio_device, (0, padded - n))
+    i16 = pcm16_pack_graph(resample_graph(xp, sample_rate, asr_sr))[:out_len].cpu().numpy()
+    p = Path(dest)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    write_wav_payload(p, i16.astype("<i2").tobytes(), asr_sr, bits=16, channels=1)
     return str(p)

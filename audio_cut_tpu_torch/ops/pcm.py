@@ -1,8 +1,8 @@
-"""On-device PCM_24 quantization for stem export.
+"""On-device PCM quantization: PCM_24 for stem export, PCM_16 for the ASR copy.
 
 Counterpart of ``audio_cut_tpu/ops/pcm.py``: the vocal stem is packed into
 24-bit PCM byte planes on the device, so 3 bytes a sample cross to the host
-instead of 4. ``torch.round``, like ``jnp.round``, rounds the float32
+instead of 4; the 16 kHz ASR copy is rounded to int16 on the device. ``torch.round``, like ``jnp.round``, rounds the float32
 product half to even. The host codec (``io/wavio.py``) rounds the float64
 product, so the two can differ by one 24-bit LSB on loud samples;
 ``pcm24_planes_to_float`` returns exactly what the written file decodes to.
@@ -23,6 +23,13 @@ def pcm24_pack_graph(x: torch.Tensor) -> torch.Tensor:
     # arithmetic shifts of the two's-complement int32 give the same low 24
     # bits as the JAX package's uint32 shifts
     return torch.stack([(u >> s) & 0xFF for s in (0, 8, 16)]).to(torch.uint8)
+
+
+def pcm16_pack_graph(x: torch.Tensor) -> torch.Tensor:
+    """float waveform [n] -> int16 [n] on the PCM_16 grid (scale 32767; the
+    float32 product rounded half to even, as ``jnp.round`` does)."""
+    q = torch.clamp(torch.round(torch.clamp(x, -1.0, 1.0) * 32767.0), -32768.0, 32767.0)
+    return q.to(torch.int16)
 
 
 def pcm24_planes_to_payload(planes: np.ndarray) -> bytes:

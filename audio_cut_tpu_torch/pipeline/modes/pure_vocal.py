@@ -21,9 +21,11 @@ manifest label ``device_ola``, so both give the same bundle bit for bit. A
 failed bundle raises, so the bundle is never None and the JAX package's
 host-waveform fallbacks have no caller. When an enclosing ``hybrid_mdd`` run asks for it,
 the pass (audio, stems, bundle) is stashed on the splitter for that run.
-``vpbd_asr`` with lyrics alignment on raises (the lyrics providers, and with
-them the guard restore outside recognised words, are not ported); with it
-off, the default, ``vpbd_asr`` runs the acoustic path as in the JAX package.
+``vpbd_asr`` with lyrics alignment on aligns lyrics from the device vocal
+stem (``detection/vpbd.py``); the timeline's words then keep the valley
+snap, the guard restore and the valley refine out of recognised words, and
+its sentence edges feed the layout's rescue scoring. With it off, the
+default, ``vpbd_asr`` runs the acoustic path as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,11 +61,12 @@ from audio_cut_tpu_torch.cutting.refine import (
     QuietLookup,
     finalize_cut_points,
     guard_shift_stats,
-    merge_word_intervals,
+    inside_word_check,
+    restore_guards_outside_words,
 )
 from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
 from audio_cut_tpu_torch.detection.vad import EnergyGateDetector, to_focus_windows
-from audio_cut_tpu_torch.detection.vpbd import VocalPhraseBoundaryDetector, check_lyrics_alignment
+from audio_cut_tpu_torch.detection.vpbd import VocalPhraseBoundaryDetector
 from audio_cut_tpu_torch.io.segment_export import ExportResult
 from audio_cut_tpu_torch.pipeline.classify import (
     classify_segments_vocal_presence,
@@ -85,7 +88,6 @@ def process_pure_vocal_split(
     mode: str,
     export_plan: Optional[Sequence[str]] = None,
 ) -> Dict[str, Any]:
-    check_lyrics_alignment(mode)
     t0 = time.time()
     sr = splitter.sample_rate
     with record_function("load"):
@@ -124,7 +126,7 @@ def process_pure_vocal_split(
         sep.separation_confidence = float(np.clip(1.0 - abs(ratio - 0.35) / 0.65, 0.1, 0.99))
     with record_function("host_tail"):
         plan = _plan_cuts(audio, sr, bundle, vad_detector, vad_model, qc, eqc, lbr,
-                          mode=mode, output_dir=output_dir)
+                          mode=mode, output_dir=output_dir, vocal_device=sep.vocal_device)
     cut_samples, flags, debug = plan["cut_samples"], plan["flags"], plan["debug"]
     refine_result = plan["refine_result"]
 
@@ -183,13 +185,16 @@ def fused_pass_key(input_path: str):
 
 def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
                qc: Dict[str, Any], eqc: Dict[str, Any], lbr: Dict[str, Any], *,
-               mode: str = "v2.2_mdd", output_dir: Optional[str] = None) -> Dict[str, Any]:
+               mode: str = "v2.2_mdd", output_dir: Optional[str] = None,
+               vocal_device=None) -> Dict[str, Any]:
     """The host tail from the bundle to the final cut samples, their flags
     and debug entries: VAD focus windows, the mode's candidates, guards,
     layout, the valley refine, classification and the weak-tail merge. For
     the vpbd modes it applies the smart-cut runtime overrides to the config,
     which the caller restores, and writes the candidate debug JSON to
-    ``output_dir`` when one is given."""
+    ``output_dir`` when one is given. ``vocal_device`` is the vocal stem on
+    its device, which ``vpbd_asr`` reads for the ASR copy when it aligns
+    lyrics."""
     duration = len(audio) / float(sr)
     features = bundle.features
 
@@ -217,11 +222,13 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
     auto_profile: Optional[Dict[str, Any]] = None
     note: Optional[str] = None
     vres = None
+    # the timeline's words, where vpbd_asr aligned lyrics
+    words: Optional[List[tuple]] = None
     if mode in VPBD_MODES:
         auto_profile = _apply_smart_cut_runtime(features)
         vres = VocalPhraseBoundaryDetector(sr).detect(
             mode=mode, features=features, focus_windows=focus, duration_s=duration,
-            bundle=bundle, output_dir=output_dir,
+            bundle=bundle, output_dir=output_dir, vocal_device=vocal_device,
         )
         raw_points = [CutPoint(c.t, c.score, kind=c.source.value) for c in vres.selected]
         if not raw_points and vres.plan.rescue_points:
@@ -230,6 +237,8 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
         boundary_detection = vres.to_meta()
         lyrics_alignment = vres.lyrics_alignment
         note = vres.note
+        if vres.timeline is not None and vres.timeline.words:
+            words = [(w.start_s, w.end_s) for w in vres.timeline.words]
     else:
         detector = PureVocalPauseDetector(sr)
         pauses = detector.detect_pure_vocal_pauses(
@@ -267,6 +276,7 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
                     float(drop_cfg) if drop_cfg is not None
                     else float(eqc.get("guard_db", 1.5))
                 ),
+                word_intervals=words,
             )
             # the planner bookkeeping and the manifest's final-cut enrichment
             # key on the snapped times, so the selected entries carry them
@@ -307,9 +317,32 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
     cut_times = [p.t for p in refine_result.final_points]
     suppressed_sec = [p.t for p in refine_result.suppressed_points]
 
+    # vpbd_asr: undo guard moves that landed inside a recognised word
+    if mode == "vpbd_asr" and words:
+        cut_times, restored_adj, n_restored = restore_guards_outside_words(
+            cut_times,
+            refine_result.adjustments,
+            words,
+            duration_s=duration,
+            sr=sr,
+            min_gap_s=float(qc.get("min_split_gap", 1.2)),
+        )
+        if restored_adj is not None:
+            refine_result.adjustments = restored_adj
+            logger.info("guard restore outside ASR words: %d boundaries", n_restored)
+
     if vres is not None:
         plan_with_shifts = apply_guard_shift_metadata(vres.plan, refine_result.adjustments)
         boundary_detection["planner"] = dict(plan_with_shifts.metadata)
+
+    # ASR priors for the layout's rescue scoring (sentence edges) and the
+    # local valley refine (words)
+    asr_boundaries = None
+    if words:
+        asr_boundaries = sorted({
+            *(s.start_s for s in vres.timeline.sentences),
+            *(s.end_s for s in vres.timeline.sentences),
+        })
 
     # -- layout refinement ------------------------------------------------------
     layout_cfg = get_config("v2_mdd.segment_layout", {}) or {}
@@ -335,6 +368,8 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
             beat_times=features.beat_times,
             suppressed=rescue_pool,
             segment_kinds=segment_kinds,
+            word_intervals=words,
+            asr_boundaries=asr_boundaries,
         )
         cut_times = lres.cut_times
         layout_applied = True
@@ -347,7 +382,7 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
             min_drop_db=float(lbr.get("min_drop_db", 5.0)),
             db_grid=bundle.mix_db_refine,
             db_stride=bundle.db_stride,
-            word_intervals=None,
+            word_intervals=words,
         )
 
     # -- classification + weak-tail merge -------------------------------------------
@@ -455,21 +490,6 @@ def _export(splitter, sep, audio, segments, flags_out, cut_samples, export_flags
     return out
 
 
-def _inside_word_check(word_intervals: Optional[List[tuple]]):
-    """A predicate: is ``t`` strictly inside one of the (merged) words?"""
-    if not word_intervals:
-        return lambda t: False
-    iv = merge_word_intervals(word_intervals)  # overlapping words happen
-    word_starts = np.asarray([a for a, _ in iv])
-    word_ends = np.asarray([b for _, b in iv])
-
-    def inside(t: float) -> bool:
-        k = int(np.searchsorted(word_starts, t, side="right")) - 1
-        return k >= 0 and word_starts[k] < t < word_ends[k]
-
-    return inside
-
-
 def _valley_snap_points(
     points,
     db_grid: np.ndarray,
@@ -478,11 +498,14 @@ def _valley_snap_points(
     *,
     radius_ms: float,
     min_drop_db: float,
+    word_intervals: Optional[List[tuple]] = None,
 ):
     """Snap each CutPoint's time to the quietest grid point within
     ``±radius_ms``, keeping score/kind. Only moves when the valley is at
     least ``min_drop_db`` quieter than the current position (clean stems
-    stay untouched). Run BEFORE NMS/guards — see the call site for why."""
+    stay untouched); a position strictly inside an ASR word is rejected.
+    Run BEFORE NMS/guards — see the call site for why."""
+    inside_word = inside_word_check(word_intervals)
     env_db = np.asarray(db_grid)
     grid_sr = sr / float(db_stride)
     radius = max(1, int(round(radius_ms / 1000.0 * grid_sr)))
@@ -494,7 +517,7 @@ def _valley_snap_points(
         hi = min(n, idx + radius)
         best = int(np.argmin(env_db[lo:hi])) + lo
         t_best = best / grid_sr
-        if env_db[idx] - env_db[best] >= min_drop_db:
+        if env_db[idx] - env_db[best] >= min_drop_db and not inside_word(t_best):
             out.append(type(p)(float(t_best), p.score, kind=p.kind))
         else:
             out.append(p)
@@ -517,7 +540,7 @@ def _local_valley_refine(
     that lands strictly inside a word is rejected and the cut kept."""
     if not cut_times:
         return cut_times
-    inside_word = _inside_word_check(word_intervals)
+    inside_word = inside_word_check(word_intervals)
     env_db = np.asarray(db_grid)
     grid_sr = sr / float(db_stride)
     radius = max(1, int(round(radius_ms / 1000.0 * grid_sr)))

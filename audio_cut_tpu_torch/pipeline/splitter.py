@@ -5,7 +5,7 @@ Counterpart of ``audio_cut_tpu/pipeline/splitter.py``. The port runs
 fused pass, or on the staged path with ``device_pipeline.fused_program:
 false``), ``vpbd_acoustic`` and ``vpbd_asr`` (the unified candidate pool,
 the phrase scorer and the DP planner before the same guards and layout;
-``vpbd_asr`` with lyrics alignment off, the default), ``hybrid_mdd`` (the
+``vpbd_asr`` adds lyric candidates when lyrics alignment is on), ``hybrid_mdd`` (the
 ``v2.2_mdd`` cuts snapped to beats, with _lib tags, on the sub-run's device
 pass) and ``vocal_separation`` (stems only); ``librosa_onset`` raises
 ``NotImplementedError`` naming its ROADMAP.md item.

@@ -1,11 +1,12 @@
 """Separation backends behind the engine.
 
-Counterpart of ``audio_cut_tpu/separation/backends.py``. The engine's
-``make_backend`` has the ``convtdf`` backend only; asking for another raises
-``NotImplementedError`` naming its ROADMAP.md item. ``SpectralMaskBackend``
-is ported for the trainer's held-out comparison
-(``training/train_separator.py``); as an engine backend, with the fallback
-chain, it waits for its ROADMAP.md item.
+Counterpart of ``audio_cut_tpu/separation/backends.py``. ``make_backend``
+builds ``convtdf`` (the packaged ConvTDF) and ``spectral`` (the model-free
+harmonic-percussive mask, also the trainer's held-out yardstick); asking for
+``waveunet`` or ``onnx`` raises ``NotImplementedError`` naming its ROADMAP.md
+item. The spectral backend's median filters are elementwise min/max
+networks, as in the JAX package (plain array code there, no Pallas); its
+iSTFT ends in kernel K1.
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ def _median_filter_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
     return _median_of([xp.narrow(axis, k, n) for k in range(size)])
 
 
+# windows per spectral group, as in the JAX package's separate_windows_fn
+WINDOW_GROUP = 4
+
+
 class SpectralMaskBackend:
     """Model-free vocal/instrumental split via harmonic-percussive masking:
     median-filtered harmonic and percussive soft masks times a vocal-band
@@ -103,8 +108,22 @@ class SpectralMaskBackend:
         """One float32 window [S] on its device -> (vocal, instrumental), each [S]."""
         return self._separate(window, int(window.shape[-1]))
 
+    @torch.inference_mode()
+    def separate_windows(self, windows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The engine's batched path: [N, S] -> 2x [N, S]. Each group of up
+        to ``WINDOW_GROUP`` windows is one STFT, the two median filters and
+        one iSTFT (one K1 launch on the card); the group bounds the memory of
+        the median network's slices. The windows are independent, so the last
+        group is simply shorter: the JAX package zero-pads N to a multiple of
+        the group because ``lax.map`` needs one static shape, which eager
+        PyTorch does not."""
+        length = int(windows.shape[-1])
+        outs = [self._separate(windows[i:i + WINDOW_GROUP], length)
+                for i in range(0, int(windows.shape[0]), WINDOW_GROUP)]
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
 _NOT_PORTED = {
-    "spectral": "the spectral backend and the fallback chain",
     "waveunet": "other separator tiers (waveunet, onnx)",
     "onnx": "other separator tiers (waveunet, onnx)",
 }
@@ -119,6 +138,9 @@ _BACKEND_CACHE_MAX = 4
 
 def _config_key(name: str) -> Tuple:
     cfg = get_config(f"enhanced_separation.{name}", {}) or {}
+    if name == "spectral":
+        # the spectral backend also reads its band edges from vocal_separation
+        cfg = {**cfg, **(get_config("vocal_separation", {}) or {})}
     return tuple(sorted((k, str(v)) for k, v in cfg.items()))
 
 
@@ -127,15 +149,18 @@ def make_backend(name: str, sample_rate: int, device: torch.device):
         raise NotImplementedError(
             f"separation backend {name!r} is not in the PyTorch port yet: "
             f"ROADMAP.md, queue 1, '{_NOT_PORTED[name]}'")
-    if name != "convtdf":
+    if name not in ("convtdf", "spectral"):
         raise ValueError(f"unknown separation backend {name!r}")
     device = torch.device(device)
     key = (name, int(sample_rate), str(device), _config_key(name))
     backend = _BACKEND_CACHE.get(key)
     if backend is None:
-        from audio_cut_tpu_torch.models.convtdf import ConvTDFBackend
+        if name == "spectral":
+            backend = SpectralMaskBackend(sample_rate)
+        else:
+            from audio_cut_tpu_torch.models.convtdf import ConvTDFBackend
 
-        backend = ConvTDFBackend(sample_rate, device)
+            backend = ConvTDFBackend(sample_rate, device)
         _BACKEND_CACHE[key] = backend
         while len(_BACKEND_CACHE) > _BACKEND_CACHE_MAX:
             _BACKEND_CACHE.pop(next(iter(_BACKEND_CACHE)))

@@ -6,10 +6,23 @@ windows, run through the backend in groups, and overlap-added on the device
 with the cross-fade/halo weights of ``ola_plan`` (the JAX package's
 ``_ola_graph``). The stems stay on the device; the host copies are lazy.
 
+A backend with a native geometry (``engine_geometry()``, the ConvTDF) gets
+engine windows equal to its model windows; one without (the spectral mask)
+takes the config schedule, ``device_pipeline.chunk_seconds`` /
+``overlap_seconds`` / ``halo_seconds`` / ``align_hop``, as in the JAX
+package.
+
+The JAX package's backend fallback chain is not carried, by design: there a
+primary backend that fails to load or run is replaced by
+``enhanced_separation.fallback_backend`` and then by ``spectral`` while
+``enhanced_separation.enable_fallback`` is on (the default), or the result
+has no stems (``backend_used="none"``). That would hide the model. Here a
+backend that fails to load or run raises, whatever those two keys say, and
+no code path builds the spectral backend as a substitute.
+
 Not in this slice (ROADMAP.md, queue 1): the pipelined piece upload, which
 gives the same stems and overlaps the upload with compute; the host-chunked
-path of backends without a batched window forward; the backend fallback
-chain. A backend that fails to load or run raises.
+path of backends without a batched window forward.
 """
 
 from __future__ import annotations
@@ -267,10 +280,16 @@ class SeparationEngine:
         return self._backend
 
     def _geometry(self) -> Tuple[float, float, float, int]:
-        """The backend's native chunk geometry (chunk, overlap, halo seconds;
-        align): engine windows are model windows, so the whole-track OLA is
-        one batched model forward."""
-        g = self.backend.engine_geometry()
+        """The chunk geometry (chunk, overlap, halo seconds; align): the
+        backend's native one, where engine windows are model windows and the
+        whole-track OLA is one batched model forward; else the config's."""
+        geometry = getattr(self.backend, "engine_geometry", None)
+        if geometry is None:
+            return (float(get_config("device_pipeline.chunk_seconds", 10.0)),
+                    float(get_config("device_pipeline.overlap_seconds", 2.5)),
+                    float(get_config("device_pipeline.halo_seconds", 0.5)),
+                    int(get_config("device_pipeline.align_hop", 4096)))
+        g = geometry()
         return float(g["chunk_s"]), float(g["overlap_s"]), float(g["halo_s"]), int(g["align"])
 
     def _synchronize(self) -> None:

@@ -37,6 +37,16 @@
    launch K0 once. Before each path the script sets every launch count to 0
    and re-arms the library check (``reset_counts``), so each path shows K0
    as a fresh process would;
+   Then the spectral backend on the same song, cold then warm
+   (``enhanced_separation.backend: spectral``, no model): each call must
+   report the backend and ``cuda``, run the config schedule's engine windows
+   (8 at 60 s, computed by the script with ``ola_plan``), launch K1
+   ceil(windows / 4) times and K2 once, and splice back exactly; one group
+   of 4 engine windows through the backend on the card and on the CPU must
+   agree at SNR >= ``SPECTRAL_SNR_DB``; K1 at the shape this path gives it
+   ([4, 865, 2048] hop 512 at 60 s) is held against its plain version and timed
+   beside its bound and ``F.fold``; one more warm call is profiled, with the
+   median network's share of the card's busy time;
    Then drives the vpbd modes the same way, on the same song with a loud
    section of whole bars from ``CHORUS_S`` on (where the chorus-gated beat
    candidates fall): ``mode="vpbd_acoustic"`` twice and ``mode="vpbd_asr"``
@@ -49,6 +59,18 @@
    JSON; ``vpbd_asr`` carries ``note == "lyrics_unavailable:disabled"``.
    Prints each call's wall time, style, anchor weights, candidate counts
    and cuts, and the phase's peak memory.
+   Then vpbd_asr with lyric priors on that song, through the intent
+   argument ``segments="many"``: with the fake provider on a timeline the
+   script writes from the song's voice phrases (two words, one sentence and
+   one mVAD region a phrase), the call must report vpbd_asr with no note and
+   the fake provider, hold lyric candidates in its pool, echo the intent,
+   give every segment the words that lie inside it, launch K1 3 times and K2
+   once and splice back exactly; its ASR copy must be made from the CUDA
+   vocal stem and lie within one PCM_16 step of the same function's copy of
+   that stem on the CPU. On the default provider chain the call must note
+   ``lyrics_unavailable:no_provider``; strict with the null provider it must
+   raise ``LyricsAlignmentUnavailable``. The first call runs once more under
+   the profiler.
    Then drives ``mode="hybrid_mdd"`` the same way, once per strategy
    (``snap_to_beat`` at the defaults, then ``beat_only``) on the song with
    the loud section and on a song whose loud section from ``STOP_TIME_S``
@@ -108,7 +130,9 @@
     shape) and its bound. It runs after the main path and training, so that
     the cuBLAS workspace the ``torch.einsum`` yardstick leaves allocated is
     not counted in their peak memory;
-13. prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+13. prints a ``kernels`` JSON line (K1's entry also lists its times at the
+    serving shape and the spectral backend's under ``shapes``) and, last,
+    ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
 result. It needs no network and writes only under ``build/`` in the checkout
@@ -195,6 +219,13 @@ HYBRID_CASES = (("snap_to_beat", {}), ("beat_only", {"hybrid_mdd.lib_alignment":
 STOP_TIME_S = 40.0
 SPANS = ("load", "separation", "detection_bundle", "host_tail", "export")
 STEP_SPANS = ("upload", "loss", "backward", "optimizer", "metrics")
+# the spectral phase: the backend override, and the least SNR of the card's
+# vocal against the CPU's on one group of windows (float32 throughout, the
+# medians exact selections)
+SPECTRAL = {"enhanced_separation.backend": "spectral"}
+SPECTRAL_SNR_DB = 60.0
+# the median network's elementwise kernels in a profile of a spectral call
+MEDIAN_KERNELS = ("minimum", "maximum")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -210,7 +241,7 @@ def nvidia_smi_line() -> str:
 
 
 def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional[float] = None,
-              stop_time_s: Optional[float] = None):
+              stop_time_s: Optional[float] = None, phrases: Optional[list] = None):
     """Synthetic song: harmonic vocal-like phrases over a percussive bed,
     with quiet gaps (the generator of the repository's tests). With
     ``chorus_s``, the bed is three times as loud from that time on and
@@ -220,7 +251,8 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional
     sings 1.8 s phrases that start on the beat grid, 3 s apart: a
     high-energy section whose rests are silent and hold two beats, the
     first 0.2 s after the phrase's end, where hybrid_mdd's snap to a quiet
-    beat can take effect."""
+    beat can take effect. A ``phrases`` list receives each voice phrase's
+    (start, end) in seconds."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -247,6 +279,8 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional
         fade = np.minimum(1.0, np.minimum(np.arange(seg.sum()) / (0.05 * sr),
                                           (seg.sum() - np.arange(seg.sum())) / (0.05 * sr)))
         audio[seg] += 0.35 * x * fade * (3.0 if sung else 1.0)
+        if phrases is not None:
+            phrases.append((float(phrase), float(phrase + length)))
         if sung:
             phrase += 3.0
             continue
@@ -434,64 +468,84 @@ def check_k0(torch, dev):
     return timing
 
 
-def check_k1(torch, dev):
-    """K1 against its plain version at OLA_SHAPES; times at the serving shape."""
-    import numpy as np
+def time_k1(torch, dev, shape, hop: int, label: str):
+    """K1's device time at ``shape`` [B, N, L] and ``hop`` beside its plain
+    version, ``F.fold`` and its bound; the wrapper's time per Python call
+    printed apart."""
     import torch.nn.functional as F
 
     from audio_cut_tpu_torch.ops.ola import windowed_ola_cuda, windowed_ola_reference
     from audio_cut_tpu_torch.ops.stft import hann_window
 
+    batch, n, L = shape
+    total = (n - 1) * hop + L
+    window = hann_window(L, device=dev)
+    # rotate over 4 input sets (each more than 25 MB, together more than the
+    # 50 MB L2), so every launch reads its frames from device memory as the
+    # serving path does
+    sets = [torch.randn(shape, device=dev) for _ in range(4)]
+    nxt = _rotating(sets)
+
+    def fold(x):
+        return F.fold((x * window).transpose(1, 2), output_size=(1, total),
+                      kernel_size=(1, L), stride=(1, hop))
+
+    lib = fold(sets[0]).reshape(batch, total)
+    ref = windowed_ola_reference(sets[0], window, hop)
+    lib_err = float((lib - ref).abs().max())
+    print(f"K1 {label} {tuple(shape)} hop {hop}: library yardstick F.fold(frames * window): "
+          f"max |fold - plain| = {lib_err:.3e}")
+    moved = (batch * n * L + L + batch * total) * 4
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    kernel = lambda: windowed_ola_cuda(nxt(), window, hop)  # noqa: E731
+    plain = lambda: windowed_ola_reference(nxt(), window, hop)  # noqa: E731
+    # device times (CUDA graph replay) for the kernels line; the wrapper's
+    # time per Python call beside it, labelled apart
+    timing = {
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(plain),
+        "library_ms": device_ms(lambda: fold(nxt())),
+        "bound_ms": bound,
+    }
+    wrapper_ms = call_ms(kernel)
+    print(f"K1 {label} {tuple(shape)} hop {hop}, device time per call (CUDA graph "
+          f"replay of 100 calls, median of 5): kernel {timing['ms']:.4f} ms, "
+          f"plain {timing['plain_ms']:.4f} ms, F.fold {timing['library_ms']:.4f} ms; "
+          f"bound {bound:.4f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
+    print(f"K1 {label}: wrapper called from Python 100 times in a row, "
+          f"{wrapper_ms:.4f} ms per call (CUDA events; includes the host's launch rate)")
+    return timing
+
+
+def k1_error(torch, dev, shape, hop: int) -> float:
+    """max |K1 - plain| on seeded frames of ``shape``; fails beyond OLA_ATOL."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.ops.ola import windowed_ola_cuda, windowed_ola_reference
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    n, L = shape[-2:]
+    frames = torch.from_numpy(
+        np.random.default_rng(n + L).standard_normal(shape).astype(np.float32)).to(dev)
+    window = hann_window(L, device=dev)
+    got = windowed_ola_cuda(frames, window, hop)
+    want = windowed_ola_reference(frames, window, hop)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"K1 {shape} hop {hop}: max |kernel - plain| = {err:.3e} (atol {OLA_ATOL})")
+    if not (got.shape == want.shape and err <= OLA_ATOL):
+        fail(f"K1 disagrees with its plain version at {shape} hop {hop}: {err}")
+    return err
+
+
+def check_k1(torch, dev):
+    """K1 against its plain version at OLA_SHAPES; times at the serving shape."""
     max_err = 0.0
-    timing = None
     for batch, n, L, hop in OLA_SHAPES:
-        shape = (n, L) if batch is None else (batch, n, L)
-        frames = torch.from_numpy(
-            np.random.default_rng(n + L).standard_normal(shape).astype(np.float32)).to(dev)
-        window = hann_window(L, device=dev)
-        got = windowed_ola_cuda(frames, window, hop)
-        want = windowed_ola_reference(frames, window, hop)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        print(f"K1 {shape} hop {hop}: max |kernel - plain| = {err:.3e} (atol {OLA_ATOL})")
-        if not (got.shape == want.shape and err <= OLA_ATOL):
-            fail(f"K1 disagrees with its plain version at {shape} hop {hop}: {err}")
-        max_err = max(max_err, err)
-        if timing is None:  # the serving shape
-            total = (n - 1) * hop + L
-            # rotate over 4 input sets (4 x 25 MB > the 50 MB L2), so every
-            # launch reads its frames from device memory as the serving path does
-            sets = [torch.randn(shape, device=dev) for _ in range(4)]
-            nxt = _rotating(sets)
-
-            def fold(x):
-                return F.fold((x * window).transpose(1, 2), output_size=(1, total),
-                              kernel_size=(1, L), stride=(1, hop))
-
-            lib = fold(sets[0]).reshape(batch, total)
-            ref = windowed_ola_reference(sets[0], window, hop)
-            lib_err = float((lib - ref).abs().max())
-            print(f"K1 library yardstick F.fold(frames * window): max |fold - plain| = {lib_err:.3e}")
-            moved = (frames.numel() + window.numel() + batch * total) * 4
-            bound = moved / HBM_BYTES_PER_S * 1e3
-            kernel = lambda: windowed_ola_cuda(nxt(), window, hop)  # noqa: E731
-            plain = lambda: windowed_ola_reference(nxt(), window, hop)  # noqa: E731
-            # device times (CUDA graph replay) for the kernels line; the
-            # wrapper's time per Python call beside it, labelled apart
-            timing = {
-                "ms": device_ms(kernel),
-                "plain_ms": device_ms(plain),
-                "library_ms": device_ms(lambda: fold(nxt())),
-                "bound_ms": bound,
-                "bytes": moved,
-            }
-            wrapper_ms = call_ms(kernel)
-            print(f"K1 serving shape {shape} hop {hop}, device time per call (CUDA graph "
-                  f"replay of 100 calls, median of 5): kernel {timing['ms']:.4f} ms, "
-                  f"plain {timing['plain_ms']:.4f} ms, F.fold {timing['library_ms']:.4f} ms; "
-                  f"bound {bound:.4f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
-            print(f"K1 serving shape: wrapper called from Python 100 times in a row, "
-                  f"{wrapper_ms:.4f} ms per call (CUDA events; includes the host's launch rate)")
+        max_err = max(max_err, k1_error(torch, dev, (n, L) if batch is None else (batch, n, L), hop))
+    batch, n, L, hop = OLA_SHAPES[0]
+    timing = time_k1(torch, dev, (batch, n, L), hop, "serving shape")
+    timing["max_abs_err"] = max_err
     return max_err, timing
 
 
@@ -644,7 +698,7 @@ def check_k1w(torch, dev):
     one device kernel in a profiled call, one launch through autograd with a
     trainable window; device times at K1W_TIMED_SHAPES. Returns (largest
     |K1W - plain|, the training shape's timing)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from audio_cut_tpu_torch.ops.ola import (
         K1B, K1W, ola_backward_window_cuda, window_plan, windowed_ola,
@@ -681,10 +735,18 @@ def check_k1w(torch, dev):
     if not torch.equal(first, second):
         fail("two K1W launches on the same inputs differ")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ola_backward_window_cuda(g, frames, window, hop)
-        torch.cuda.synchronize()
-    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # one warm-up step before the recorded one: a short session's first
+    # kernels can go unrecorded while the tracer starts (runs that profiled
+    # this one call alone have recorded no kernel at all)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            ola_backward_window_cuda(g, frames, window, hop)
+            torch.cuda.synchronize()
+            prof.step()
+    # the step's own range also shows on the card's timeline: not a kernel
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
     print(f"K1W profiled call: {len(on_card)} device kernel(s): {on_card}")
     if len(on_card) != 1 or "ola_backward_window_kernel" not in on_card[0]:
         fail(f"one K1W call ran {on_card} on the card, not one K1W kernel")
@@ -1065,6 +1127,273 @@ def run_hybrid(torch, dev, work: Path, songs):
     print(f"hybrid_mdd: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
 
 
+def run_spectral(torch, dev, work: Path, audio):
+    """The spectral backend on the main path's song: separate_and_segment()
+    with no mode and no device and ``enhanced_separation.backend: spectral``,
+    cold then warm. Each call runs the config schedule's engine windows
+    (``ola_plan``, 8 at 60 s) in groups of 4, so it launches K1
+    ceil(windows / 4) times and K2 once (K0 once in the phase), and splices
+    back exactly. Then one group of 4 engine windows through the backend on
+    the card and on the CPU (SNR >= SPECTRAL_SNR_DB), K1 at the spectral
+    shape against its plain version and timed beside its bound, and one
+    profiled warm call. Returns K1's shape there ([B, N, L], hop) and its
+    timing."""
+    import math
+
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.config import get_config
+    from audio_cut_tpu_torch.separation.backends import WINDOW_GROUP, make_backend
+    from audio_cut_tpu_torch.separation.engine import ola_plan, padded_track_len
+
+    geometry = (float(get_config("device_pipeline.chunk_seconds")),
+                float(get_config("device_pipeline.overlap_seconds")),
+                float(get_config("device_pipeline.halo_seconds")),
+                int(get_config("device_pipeline.align_hop")))
+    padded = padded_track_len(audio.size, SR, geometry[3])
+    plans, window, _, _ = ola_plan(padded, SR, *geometry)
+    want_k1 = math.ceil(len(plans) / WINDOW_GROUP)
+    print(f"spectral: config schedule {geometry}: {len(plans)} engine windows of {window} samples "
+          f"over {padded}, so K1 {want_k1} and K2 1 a call")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the spectral path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+    for call in range(CALLS):
+        out = work / f"spectral{call}"
+        k1, k2 = K1.launches, K2.launches
+        t0 = time.perf_counter()
+        m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                 runtime_overrides=SPECTRAL)
+        wall = time.perf_counter() - t0
+        k1, k2 = K1.launches - k1, K2.launches - k2
+        gpu = m["gpu"]
+        label = f"spectral v2.2_mdd call {call} ({'cold' if call == 0 else 'warm'})"
+        print(f"{label}: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, fused pass "
+              f"{gpu['gpu_pipeline_compute_ms']:.1f} ms, backend {gpu['gpu_pipeline_backend']}, "
+              f"{gpu['gpu_pipeline_chunks']} windows, K1 launches {k1}, K2 launches {k2}")
+        if gpu["gpu_pipeline_backend"] != "spectral" or gpu["gpu_pipeline_device"] != "cuda":
+            fail(f"{label}: backend {gpu['gpu_pipeline_backend']!r} on "
+                 f"{gpu['gpu_pipeline_device']!r}, expected 'spectral' on 'cuda'")
+        if gpu["gpu_pipeline_chunks"] != len(plans):
+            fail(f"{label}: {gpu['gpu_pipeline_chunks']} windows, expected {len(plans)}")
+        if k1 != want_k1 or k2 != 1:
+            fail(f"{label}: K1 launched {k1} times and K2 {k2} times; expected {want_k1} and 1")
+        check_segments(m, out, audio)
+        print(f"{label}: {len(m['segments'])} segments {[s['label'] for s in m['segments']]}, "
+              f"cuts (samples) {m['cuts']['samples']}, spliced back exactly")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"spectral: launches in the {CALLS} calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the spectral calls; expected once")
+    print(f"spectral: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
+
+    # one group of engine windows, card against CPU
+    backend = make_backend("spectral", SR, dev)
+    padded_audio = np.pad(audio, (0, padded - audio.size))
+    group = torch.from_numpy(np.stack([padded_audio[p.start:p.start + window]
+                                       for p in plans[:WINDOW_GROUP]]))
+    v_card, _ = backend.separate_windows(group.to(dev))
+    t0 = time.perf_counter()
+    v_cpu, _ = make_backend("spectral", SR, "cpu").separate_windows(group)
+    cpu_s = time.perf_counter() - t0
+    v_card = v_card.cpu().numpy()
+    err = float(np.abs(v_card - v_cpu.numpy()).max())
+    snr = snr_db(v_cpu.numpy(), v_card)
+    print(f"spectral: one group of {WINDOW_GROUP} engine windows ({window} samples), vocal card vs "
+          f"CPU: max |diff| = {err:.3e}, SNR {snr:.2f} dB (required >= {SPECTRAL_SNR_DB}); "
+          f"CPU {cpu_s:.2f} s")
+    if not snr >= SPECTRAL_SNR_DB:
+        fail(f"spectral: the card's vocal is {snr:.2f} dB from the CPU's, < {SPECTRAL_SNR_DB} dB")
+
+    # K1 at the shape this path gives it: one group's iSTFT frames
+    shape, hop = (WINDOW_GROUP, window // backend.hop + 1, backend.n_fft), backend.hop
+    k1_err = k1_error(torch, dev, shape, hop)
+    timing = time_k1(torch, dev, shape, hop, "spectral shape")
+    timing["max_abs_err"] = k1_err
+
+    # one warm call, profiled: the median network's share of the card
+    found, busy_ms = profile_call(torch, work, mode="v2.2_mdd", song="song.wav",
+                                  overrides=SPECTRAL, name="spectral")
+    median = [e for e in found if any(k in e.name for k in MEDIAN_KERNELS)]
+    if busy_ms > 0:
+        median_ms = _union_us([(e.time_range.start, e.time_range.end) for e in median]) / 1e3
+        print(f"profile (spectral): the median network's min/max kernels: {len(median)} launches, "
+              f"{median_ms:.1f} ms busy, {median_ms / busy_ms:.3f} of the card's busy time")
+    else:
+        print("profile (spectral): the median network's share not measured (no kernels recorded)")
+    return shape, hop, timing
+
+
+class _AsrCopies:
+    """Wraps the port's ``write_asr_copy_from_device`` to record, for each
+    call, its input stem's device, a host copy of that stem and the int16
+    copy it wrote; the call still runs it."""
+
+    def __init__(self):
+        from audio_cut_tpu_torch.io import audio as io_audio
+
+        self.module = io_audio
+        self.inner = io_audio.write_asr_copy_from_device
+        self.calls = []
+
+    def __enter__(self):
+        def write_asr_copy_from_device(audio_device, sample_rate, dest, *args, **kwargs):
+            out = self.inner(audio_device, sample_rate, dest, *args, **kwargs)
+            self.calls.append((audio_device.device, audio_device.detach().cpu(), read_pcm16(out)))
+            return out
+
+        self.module.write_asr_copy_from_device = write_asr_copy_from_device
+        return self
+
+    def __exit__(self, *exc):
+        self.module.write_asr_copy_from_device = self.inner
+
+
+def read_pcm16(path):
+    """The int16 samples of a mono 16 kHz PCM_16 WAV file."""
+    import wave
+
+    import numpy as np
+
+    with wave.open(str(path), "rb") as w:
+        if (w.getframerate(), w.getsampwidth(), w.getnchannels()) != (16000, 2, 1):
+            fail(f"{path}: not mono 16 kHz PCM_16")
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+
+
+def write_timeline(path: Path, phrases) -> dict:
+    """A lyrics timeline in the schema of tests/fixtures/lyrics/: two words
+    inside each voice phrase, one sentence and one mVAD region per phrase."""
+    words, sentences, regions = [], [], []
+    for k, (a, b) in enumerate(phrases):
+        words += [{"text": f"la{k}", "start_s": round(a + 0.10, 3), "end_s": round(a + 0.95, 3),
+                   "confidence": 0.9},
+                  {"text": f"lo{k}", "start_s": round(a + 1.10, 3), "end_s": round(b - 0.20, 3),
+                   "confidence": 0.9}]
+        sentences.append({"text": f"la{k} lo{k}.", "start_s": round(a + 0.10, 3),
+                          "end_s": round(b - 0.20, 3), "confidence": 0.9})
+        regions.append({"start_s": round(a, 3), "end_s": round(b, 3), "kind": "singing",
+                        "confidence": 0.9})
+    timeline = {"language": "en", "words": words, "sentences": sentences, "vad_regions": regions}
+    path.write_text(json.dumps(timeline, indent=1), encoding="utf-8")
+    return timeline
+
+
+def run_lyrics(torch, dev, work: Path, audio, phrases):
+    """vpbd_asr with lyric priors on ``song_chorus.wav`` (``audio``), through
+    the intent argument ``segments="many"`` with no device: with the fake
+    provider on a timeline of the song's phrases (lyric candidates in the
+    pool, per-segment lyrics, the intent echo, K1 3 and K2 1, the exact
+    splice, an ASR copy made from the CUDA stem and within one PCM_16 step of
+    the CPU's copy of the same stem); on the default provider chain
+    (``lyrics_unavailable:no_provider``); and strict with the null provider,
+    which must raise ``LyricsAlignmentUnavailable``. Then call 0 once more
+    under the profiler."""
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.exceptions import LyricsAlignmentUnavailable
+    from audio_cut_tpu_torch.io.audio import write_asr_copy_from_device
+
+    song = work / "song_chorus.wav"
+    fixture = work / "song_chorus_timeline.json"
+    timeline = write_timeline(fixture, phrases)
+    print(f"lyrics: timeline of {len(phrases)} phrases, {len(timeline['words'])} words, written to "
+          f"the work directory")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the lyrics path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+
+    out = work / "lyrics0"
+    with _AsrCopies() as copies:
+        t0 = time.perf_counter()
+        m = separate_and_segment(input_uri=str(song), export_dir=str(out), segments="many",
+                                 runtime_overrides={"lyrics_alignment.provider": "fake",
+                                                    "lyrics_alignment.fixture_path": str(fixture)})
+        wall = time.perf_counter() - t0
+    k1, k2 = K1.launches, K2.launches
+    counts = m["boundary_detection"]["candidate_counts"]
+    la = m.get("lyrics_alignment") or {}
+    print(f"lyrics call 0 (segments=many, fake provider): {wall:.3f} s wall, {SONG_S / wall:.2f} "
+          f"audio-s per wall-s, fused pass {m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, K1 "
+          f"launches {k1}, K2 launches {k2}; mode {m['version']}, note {m.get('note')}, provider "
+          f"{la.get('provider')}, {la.get('word_count')} words; candidate_counts {counts}; "
+          f"intent {m.get('intent')}")
+    if m["version"] != "vpbd_asr" or "note" in m or la.get("provider") != "fake":
+        fail(f"lyrics: mode {m['version']}, note {m.get('note')!r}, provider {la.get('provider')!r}; "
+             "expected vpbd_asr, no note, fake")
+    if m["gpu"]["gpu_pipeline_device"] != "cuda" or k1 != 3 or k2 != 1:
+        fail(f"lyrics: {m['gpu']['gpu_pipeline_device']}, K1 {k1}, K2 {k2}; expected cuda, 3, 1")
+    if counts.get("lyrics", 0) <= 0:
+        fail(f"lyrics: no lyric candidate in the pool: {counts}")
+    if (m.get("intent") or {}).get("segments") != "many":
+        fail(f"lyrics: the manifest's intent echo is {m.get('intent')}")
+    check_segments(m, out, audio)
+    for seg in m["segments"]:
+        inside = [w["text"] for w in timeline["words"]
+                  if seg["start"] <= w["start_s"] and w["end_s"] <= seg["end"]]
+        got = [w["text"] for w in (seg.get("lyrics") or {}).get("words", [])]
+        if not set(inside) <= set(got):
+            fail(f"lyrics: segment {seg['id']} holds words {inside} but carries {got}")
+    with_lyrics = [s["id"] for s in m["segments"] if s.get("lyrics")]
+    if not with_lyrics:
+        fail("lyrics: no segment carries lyrics")
+    print(f"lyrics call 0: {len(m['segments'])} segments, {len(with_lyrics)} carry lyrics; cuts "
+          f"(samples) {m['cuts']['samples']}, spliced back exactly; guard {m['guard']['shift_stats']}")
+
+    # the ASR copy: made from the CUDA stem, within one PCM_16 step of the CPU's
+    if len(copies.calls) != 1:
+        fail(f"lyrics: {len(copies.calls)} device ASR copies in the call, expected 1")
+    stem_device, stem, card_copy = copies.calls[0]
+    if stem_device.type != "cuda":
+        fail(f"lyrics: the ASR copy was made from a stem on {stem_device}")
+    cpu_copy = read_pcm16(write_asr_copy_from_device(stem, SR, work / "asr_cpu.wav"))
+    diff = np.abs(card_copy - cpu_copy) if card_copy.size == cpu_copy.size else None
+    print(f"lyrics: ASR copy from the {stem_device} stem: {card_copy.size} int16 samples at 16 kHz "
+          f"(CPU copy of the same stem: {cpu_copy.size}); "
+          + (f"max |card - CPU| = {int(diff.max())} LSB, {int((diff > 0).sum())} samples differ"
+             if diff is not None else "lengths differ"))
+    if diff is None or diff.max() > 1:
+        fail("lyrics: the card's ASR copy is not within one PCM_16 step of the CPU's")
+
+    # the default provider chain ends at null
+    out = work / "lyrics1"
+    k1, k2 = K1.launches, K2.launches
+    t0 = time.perf_counter()
+    m = separate_and_segment(input_uri=str(song), export_dir=str(out), segments="many")
+    wall = time.perf_counter() - t0
+    k1, k2 = K1.launches - k1, K2.launches - k2
+    print(f"lyrics call 1 (segments=many, default chain): {wall:.3f} s wall, {SONG_S / wall:.2f} "
+          f"audio-s per wall-s, K1 launches {k1}, K2 launches {k2}, note {m.get('note')}")
+    if m.get("note") != "lyrics_unavailable:no_provider" or k1 != 3 or k2 != 1:
+        fail(f"lyrics: note {m.get('note')!r}, K1 {k1}, K2 {k2}; expected "
+             "'lyrics_unavailable:no_provider', 3, 1")
+    check_segments(m, out, audio)
+
+    # strict, with the null provider: raises
+    strict = {"lyrics_alignment.enabled": True, "lyrics_alignment.provider": "null",
+              "lyrics_alignment.strict": True}
+    try:
+        separate_and_segment(input_uri=str(song), export_dir=str(work / "lyrics2"),
+                             mode="vpbd_asr", runtime_overrides=strict)
+    except LyricsAlignmentUnavailable as exc:
+        print(f"lyrics call 2 (strict, null provider): raised LyricsAlignmentUnavailable ({exc})")
+    else:
+        fail("lyrics: strict vpbd_asr with the null provider did not raise")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"lyrics: launches in the 3 calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the lyrics calls; expected once")
+    print(f"lyrics: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
+    # call 0 once more, profiled: where its host time goes beside vpbd_acoustic's
+    profile_call(torch, work, mode="vpbd_asr", song="song_chorus.wav", name="lyrics",
+                 overrides={"lyrics_alignment.enabled": True, "smart_cut.segments": "many",
+                            "lyrics_alignment.provider": "fake",
+                            "lyrics_alignment.fixture_path": str(fixture)})
+
+
 def _unequal_fields(a, b) -> list:
     """The DetectionBundle fields (and feature fields) of ``a`` and ``b``
     that are not equal bit for bit. ``features.extras`` is left out: the
@@ -1318,26 +1647,29 @@ def _print_top(prefix: str, kernels, count: int) -> None:
         print(f"profile:   {prefix}{ms:8.3f} ms  {k:4d}x  {name[:110]}")
 
 
-def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wav"):
-    """One more warm call of ``mode`` on ``song`` under torch.profiler: where
-    its time goes."""
+def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wav",
+                 overrides: Optional[dict] = None, name: Optional[str] = None):
+    """One more warm call of ``mode`` on ``song`` (with ``overrides``, printed
+    as ``name``) under torch.profiler: where its time goes. Returns (the
+    device kernels, their busy ms); none when the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     from audio_cut_tpu_torch import separate_and_segment
 
+    name = name or mode
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m = separate_and_segment(input_uri=str(work / song),
-                                 export_dir=str(work / f"prof_{mode}"), mode=mode)
+        m = separate_and_segment(input_uri=str(work / song), export_dir=str(work / f"prof_{name}"),
+                                 mode=mode, runtime_overrides=overrides)
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not m["success"]:
-        fail(f"profiled {mode} call failed")
+        fail(f"profiled {name} call failed")
     events = prof.events()
     spans = {}
     for e in events:
         if e.name in SPANS and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    print(f"profile (warm {mode} call under torch.profiler): wall {wall_ms:.1f} ms; spans (ms): "
+    print(f"profile (warm {name} call under torch.profiler): wall {wall_ms:.1f} ms; spans (ms): "
           + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in SPANS)
           + f"; fused pass (gpu_pipeline_compute_ms) {m['gpu']['gpu_pipeline_compute_ms']:.1f}")
     on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1345,23 +1677,24 @@ def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wa
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in on_card if e.name in SPANS}
     kernels = [e for e in on_card if e.name not in SPANS]
     if not kernels:
-        print(f"profile ({mode}): device busy time not measured (the profiler recorded no kernels)")
-        return
+        print(f"profile ({name}): device busy time not measured (the profiler recorded no kernels)")
+        return [], 0.0
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    print(f"profile ({mode}): card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"profile ({name}): card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), {len(kernels)} kernel launches")
-    _print_top(f"{mode}: ", kernels, 12)
+    _print_top(f"{name}: ", kernels, 12)
     for span, (a, b) in sorted(ranges.items(), key=lambda kv: kv[1]):
         inside = [e for e in kernels if a <= e.time_range.start and e.time_range.end <= b]
         busy = _union_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e3
-        print(f"profile ({mode}): span {span} on the card: {(b - a) / 1e3:.1f} ms from its first kernel "
+        print(f"profile ({name}): span {span} on the card: {(b - a) / 1e3:.1f} ms from its first kernel "
               f"to its last, {busy:.1f} ms busy, {len(inside)} kernel launches")
-        _print_top(f"{mode} {span}: ", inside, 6)
+        _print_top(f"{name} {span}: ", inside, 6)
     for label, key in (("K1 windowed_ola_kernel", "windowed_ola_kernel"),
                        ("K2 spectral_stats_kernel", "spectral_stats_kernel")):
         per = [(e.time_range.end - e.time_range.start) / 1e3 for e in kernels if key in e.name]
-        print(f"profile ({mode}): {label}, device time per launch (ms): "
+        print(f"profile ({name}): {label}, device time per launch (ms): "
               f"{', '.join(f'{ms:.4f}' for ms in per)}")
+    return kernels, busy_ms
 
 
 def run_training(torch, dev, work: Path):
@@ -1588,9 +1921,12 @@ def main() -> int:
         audio = make_song(SONG_S)
         write_wav(work / "song.wav", audio, SR, subtype="FLOAT")
         launches, warm, warm_m = run_mdd(torch, dev, work, audio)
-        chorus = make_song(SONG_S, chorus_s=CHORUS_S)
+        spectral_shape, spectral_hop, k1_spectral = run_spectral(torch, dev, work, audio)
+        phrases = []
+        chorus = make_song(SONG_S, chorus_s=CHORUS_S, phrases=phrases)
         write_wav(work / "song_chorus.wav", chorus, SR, subtype="FLOAT")
         run_vpbd(torch, dev, work, chorus)
+        run_lyrics(torch, dev, work, chorus, phrases)
         stop = make_song(SONG_S, stop_time_s=STOP_TIME_S)
         write_wav(work / "song_stop.wav", stop, SR, subtype="FLOAT")
         run_hybrid(torch, dev, work, {"song_chorus.wav": chorus, "song_stop.wav": stop})
@@ -1638,6 +1974,12 @@ def main() -> int:
         "bound_ms": k1_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k1_timing["library_ms"],
+        # the serving shape (the numbers above) and the spectral backend's
+        "shapes": [{"shape": list(shape), "hop": hop, "max_abs_err": t["max_abs_err"],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "library_ms": t["library_ms"]}
+                   for (*shape, hop), t in ((OLA_SHAPES[0], k1_timing),
+                                            ((*spectral_shape, spectral_hop), k1_spectral))],
     }, {
         "name": "K1 backward (g_frames) ola_backward_frames",
         "route": "cuda",

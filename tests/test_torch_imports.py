@@ -40,6 +40,9 @@ def test_port_sources_import_nothing_forbidden():
     # the modules of hybrid_mdd are among the files scanned
     assert {PORT / "analysis/beat_analyzer.py", PORT / "pipeline/strategies.py",
             PORT / "pipeline/modes/hybrid.py"} <= set(files)
+    # and so are the lyrics providers of vpbd_asr
+    assert {PORT / f"lyrics/{m}.py" for m in ("protocol", "providers", "sidecar",
+                                               "cli_provider", "in_process")} <= set(files)
     bad = [(p.relative_to(REPO).as_posix(), m) for p in files for m in _imported_roots(p)
            if _forbidden(m)]
     assert bad == []
@@ -114,9 +117,6 @@ def test_sharded_training_raises():
 
 @pytest.mark.parametrize("mode, overrides, item", [
     pytest.param("librosa_onset", None, "the other modes", id="librosa_onset-the other modes"),
-    # vpbd_asr runs with lyrics alignment off; on, it needs the lyrics providers
-    pytest.param("vpbd_asr", {"lyrics_alignment.enabled": True}, "the other modes",
-                 id="vpbd_asr-lyrics on-the other modes"),
 ])
 def test_modes_outside_the_slice_raise(tmp_path, mode, overrides, item):
     import numpy as np
@@ -147,11 +147,11 @@ def test_default_mode_options_outside_the_slice_raise():
         reset_runtime_config()
 
 
-@pytest.mark.parametrize("backend", ["spectral", "onnx"])
+@pytest.mark.parametrize("backend", ["waveunet", "onnx"])
 def test_backends_outside_the_slice_raise(backend):
     from audio_cut_tpu_torch.separation.backends import make_backend
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="other separator tiers"):
         make_backend(backend, 44100, "cpu")
 
 

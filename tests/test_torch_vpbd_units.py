@@ -454,8 +454,9 @@ def test_valley_snap_and_local_refine(i):
     env = np.full(int(20.0 * GRID_SR), -30.0)
     for t, db in valleys:
         env[int(t * GRID_SR)] = db
-    # the snap runs with no words in the port (the vpbd call site passes
-    # none); the refine rejects a valley inside a word, as the JAX one does
+    # the snap with no words, as the vpbd_acoustic call site runs it (the
+    # words' case is the test below); the refine rejects a valley inside a
+    # word, as the JAX one does
     got = T._valley_snap_points([TorchPoint(t, 0.8, kind="lyrics_gap") for t in times], env, SR,
                                 STRIDE, radius_ms=radius, min_drop_db=drop)
     want = J._valley_snap_points([JaxPoint(t, 0.8, kind="lyrics_gap") for t in times], env, SR,
@@ -466,6 +467,29 @@ def test_valley_snap_and_local_refine(i):
     assert refined == J._local_valley_refine(list(times), None, SR, radius_ms=radius, window_ms=5.0,
                                              min_drop_db=drop, db_grid=env, db_stride=STRIDE,
                                              word_intervals=words)
+
+
+@pytest.mark.parametrize("i", [i for i, snap in enumerate(SNAPS) if snap[2]])
+def test_valley_snap_rejects_a_valley_inside_a_word(i):
+    """vpbd_asr passes the timeline's words to the snap: a valley strictly
+    inside a (merged) word is rejected there as in the JAX package."""
+    from audio_cut_tpu.cutting.refine import CutPoint as JaxPoint
+    from audio_cut_tpu.pipeline.modes import pure_vocal as J
+    from audio_cut_tpu_torch.cutting.refine import CutPoint as TorchPoint
+    from audio_cut_tpu_torch.pipeline.modes import pure_vocal as T
+
+    times, valleys, words, radius, drop = SNAPS[i]
+    env = np.full(int(20.0 * GRID_SR), -30.0)
+    for t, db in valleys:
+        env[int(t * GRID_SR)] = db
+    got = T._valley_snap_points([TorchPoint(t, 0.8, kind="lyrics_gap") for t in times], env, SR,
+                                STRIDE, radius_ms=radius, min_drop_db=drop, word_intervals=words)
+    want = J._valley_snap_points([JaxPoint(t, 0.8, kind="lyrics_gap") for t in times], env, SR,
+                                 STRIDE, radius_ms=radius, min_drop_db=drop, word_intervals=words)
+    assert [dataclasses.asdict(p) for p in got] == [dataclasses.asdict(p) for p in want]
+    no_words = T._valley_snap_points([TorchPoint(t, 0.8, kind="lyrics_gap") for t in times], env,
+                                     SR, STRIDE, radius_ms=radius, min_drop_db=drop)
+    assert [p.t for p in got] != [p.t for p in no_words]  # a word did reject a valley
 
 
 def test_merge_word_intervals():

@@ -7,8 +7,9 @@ copied to the host as ONE flat array. Each package unpacks that flat copy
 into its own DetectionBundle. ``patch_fused`` replaces both packages'
 ``separate_and_detect_fused``, for one test's ``MonkeyPatch`` only, by a
 function that returns the pair, so ``separate_and_segment`` then runs the
-whole host tail of each package on equal inputs. No file of either package
-changes.
+whole host tail of each package on equal inputs. The port's result also
+holds the vocal as its device stem (a CPU tensor), which its ``vpbd_asr``
+reads for the ASR copy. No file of either package changes.
 """
 
 from __future__ import annotations
@@ -114,6 +115,8 @@ def patch_fused(mp, pair: TailPair) -> None:
                              backend_used="convtdf", separation_confidence=None,
                              device_meta=dict(FAKE_META))
             sep._mix_energy = float(np.mean(np.square(audio)))
+            if result_cls is TorchResult:
+                sep.vocal_device = torch.from_numpy(pair.vocal.copy())
             bundle = bundle_mod.unpack_bundle(pair.flat, shapes, SR, n, pair.statics, vad_model)
             if bundle.vocal_energy is not None:  # as both packages' fused pass sets it
                 ratio = bundle.vocal_energy / (sep._mix_energy + 1e-12)
