@@ -9,8 +9,12 @@ cutting tail), on the fused pass or, with ``device_pipeline.fused_program:
 false``, on the staged path; in ``vpbd_acoustic`` and ``vpbd_asr`` (with
 lyric priors from an ASR provider when lyrics alignment is on, as the intent
 arguments ``segments=``/``alignment=`` turn it); in ``hybrid_mdd``
-(beat-snapped cuts with _lib tags); and in ``vocal_separation``. ROADMAP.md
-lists what comes next.
+(beat-snapped cuts with _lib tags); in ``librosa_onset`` (the bpm's bar grid
+over a feature pass, the separation only labelling the segments); and in
+``vocal_separation``. The pause detector's legacy multi-feature mode
+(``enable_relative_energy_mode: false``, YIN and LPC on the vocal stem's
+device) runs under the modes that detect pauses. ROADMAP.md lists what comes
+next.
 """
 
 from audio_cut_tpu_torch.api import separate_and_segment

@@ -5,9 +5,10 @@ pair that the separation leaves on the device, ``_bundle_fn`` computes the
 feature grid (with kernel K2), the 10 ms valley envelope, the decimated
 guard/refine dB grids, the classification activity envelope and, with a
 ConvVAD, its frame probabilities and the vocal energy. ``flatten_bundle``
-concatenates the outputs in sorted key order into one float32 tensor, so the
-host copies it once; ``unpack_bundle`` cuts the host copy back into a
-``DetectionBundle``. ``build_detection_bundle`` does the three over the
+(``features.flatten_outputs``) concatenates the outputs in sorted key order
+into one float32 tensor, so the host copies it once; ``unpack_bundle`` cuts
+the host copy back into a ``DetectionBundle``, its feature store through the
+same ``features.track_features_from_host`` as ``build_track_features``. ``build_detection_bundle`` does the three over the
 stems of one separation; the fused pass and the staged path both call it.
 
 dB grids are decimated by ``DB_STRIDE`` samples (1.45 ms at 44.1 kHz); every
@@ -23,8 +24,14 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from audio_cut_tpu_torch.analysis.features import DEFAULT_HOP_S, TrackFeatures, _compute_features
-from audio_cut_tpu_torch.ops import beats as B
+from audio_cut_tpu_torch.analysis.features import (
+    DEFAULT_HOP_S,
+    TrackFeatures,
+    _compute_features,
+    track_features_from_host,
+    unflatten_outputs,
+)
+from audio_cut_tpu_torch.analysis.features import flatten_outputs as flatten_bundle
 from audio_cut_tpu_torch.ops.frames import frame_rms
 
 DB_STRIDE = 64
@@ -99,13 +106,6 @@ def _bundle_fn(
     return out
 
 
-def flatten_bundle(out: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Tuple[int, ...]]]:
-    """(flat float32 tensor, shapes): the outputs in sorted key order."""
-    keys = sorted(out)
-    flat = torch.cat([out[k].reshape(-1).to(torch.float32) for k in keys])
-    return flat, {k: tuple(out[k].shape) for k in keys}
-
-
 @dataclass
 class DetectionBundle:
     sr: int
@@ -145,34 +145,9 @@ def unpack_bundle(
     """Cut the one host copy back into a DetectionBundle, trimmed to the
     true length ``n_true``."""
     feat_hop, fine_hop, fine_frame, guard_win, refine_win, act_hop, act_frame = statics
-    host: Dict[str, np.ndarray] = {}
-    off = 0
-    for k in sorted(shapes):
-        shape = tuple(shapes[k])
-        size = int(np.prod(shape)) if shape else 1
-        v = flat_host[off:off + size]
-        host[k] = v.reshape(shape) if shape else v[0]
-        off += size
-
-    duration_s = n_true / float(sr)
+    host = unflatten_outputs(flat_host, shapes)
+    features = track_features_from_host(host, sr, DEFAULT_HOP_S, n_true)
     n_feat = n_true // feat_hop + 1
-    fps = sr / float(feat_hop)
-    tempo = B.TempoResult(
-        bpm=host["bpm"], period_frames=host["period_frames"],
-        phase_frames=host["phase_frames"], strength=host["tempo_strength"],
-    )
-    features = TrackFeatures(
-        sr=sr,
-        hop_s=DEFAULT_HOP_S,
-        duration_s=duration_s,
-        rms=host["rms"][:n_feat],
-        flatness=host["flatness"][:n_feat],
-        onset=host["onset"][:n_feat],
-        mdd=host["mdd"][:n_feat],
-        bpm=float(host["bpm"]),
-        tempo_strength=float(host["tempo_strength"]),
-        beat_times=B.beat_times_from_tempo(tempo, fps=fps, duration_s=duration_s),
-    )
     n_fine = n_true // fine_hop + 1
     n_db = -(-n_true // DB_STRIDE)
     n_act = n_true // act_hop + 1

@@ -5,7 +5,8 @@ manifest schema. The ``device`` argument maps to
 ``gpu_pipeline.prefer_device``, which defaults to ``cuda``; with no CUDA
 device and no explicit ``"cpu"`` the call raises. The port runs the default
 ``mode="v2.2_mdd"``, ``mode="vpbd_acoustic"``, ``mode="vpbd_asr"``,
-``mode="hybrid_mdd"`` and ``mode="vocal_separation"``. The intent arguments
+``mode="hybrid_mdd"``, ``mode="librosa_onset"`` (whose manifest carries
+``smart_segmentation``) and ``mode="vocal_separation"``. The intent arguments
 (``segments``/``alignment``) default the mode to ``vpbd_asr`` and turn
 lyrics alignment on (provider ``auto``, not strict) before
 ``runtime_overrides`` apply; the manifest then echoes the resolved
@@ -342,6 +343,15 @@ def _build_manifest(
         manifest["gpu"] = device_meta
 
     manifest["qa_report"] = build_qa_report(manifest)
+
+    if result.get("bpm") is not None or result.get("method") == "smart_segment_v2":
+        manifest["smart_segmentation"] = {
+            "method": result.get("method"),
+            "bpm": result.get("bpm"),
+            "bar_duration_s": result.get("bar_duration_s"),
+            "density": result.get("density"),
+            "silence_boundaries": result.get("silence_boundaries", []),
+        }
     return manifest
 
 

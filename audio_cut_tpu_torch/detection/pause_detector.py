@@ -1,25 +1,28 @@
 """Pure-vocal pause detection: the v2.2_mdd detector.
 
-Counterpart of ``audio_cut_tpu/detection/pause_detector.py`` on its
-waveform-free path, which the detection bundle feeds: the relative-energy
-valley scan over the 10 ms vocal envelope, gated by the VAD focus windows,
-with the BPM/MDD threshold derivation, the vocal-pause-profile multiplier,
-merge-close compression, the total-valley cap, the MDD confidence
-enhancement and the precise cut points from the decimated dB grid. All of
-it is host numpy over small arrays, as in the JAX package.
+Counterpart of ``audio_cut_tpu/detection/pause_detector.py``, fed by the
+detection bundle: the relative-energy valley scan over the 10 ms vocal
+envelope, gated by the VAD focus windows, with the BPM/MDD threshold
+derivation, the vocal-pause-profile multiplier, merge-close compression, the
+total-valley cap, the MDD confidence enhancement and the precise cut points
+from the decimated dB grid. All of it is host numpy over small arrays, as in
+the JAX package.
 
-The legacy multi-feature mode (``enable_relative_energy_mode: false``)
-needs the vocal waveform and the YIN/LPC kernels of ``ops/voice.py``; it is
-not in this slice of the port (ROADMAP.md, queue 1).
+The legacy multi-feature mode (``enable_relative_energy_mode: false``) also
+takes the vocal waveform: it rescores the valleys by voicing (YIN) and
+formant (LPC) evidence from ``ops/voice.py``, computed on the device of the
+vocal stem it is given, and its cut points take their silence floor from
+the host waveform instead of the dB grid.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from audio_cut_tpu_torch.analysis.features import TrackFeatures
 from audio_cut_tpu_torch.config import get_config
@@ -29,6 +32,9 @@ from audio_cut_tpu_torch.config.derive import (
     resolve_pause_stats_multiplier,
     resolve_threshold,
 )
+
+if TYPE_CHECKING:
+    from audio_cut_tpu_torch.separation.engine import SeparationResult
 
 logger = logging.getLogger(__name__)
 
@@ -97,18 +103,18 @@ class PureVocalPauseDetector:
         features: Optional[TrackFeatures] = None,
         focus_windows: Optional[List[Tuple[float, float]]] = None,
         enable_mdd: bool = True,
+        stems: Optional[SeparationResult] = None,
     ) -> List[PureVocalPause]:
         """Pauses from the bundle's 10 ms vocal envelope ``rms_env`` and its
-        decimated fine dB grid ``env_db_grid`` of a track of ``n_samples``."""
+        decimated fine dB grid ``env_db_grid`` of a track of ``n_samples``.
+        The legacy multi-feature mode also needs the track's ``stems``: its
+        YIN/LPC analysis runs on ``stems.vocal_device`` where it lives, and
+        it reads the host copy ``stems.vocal_track`` (downloaded once, on
+        first use; only that mode reads it)."""
         cfg = get_config("v2_mdd.pure_vocal_detection", {}) or {}
         n_wave = int(n_samples)
         if not cfg.get("enable", True) or n_wave == 0:
             return []
-        if not cfg.get("enable_relative_energy_mode", True):
-            raise NotImplementedError(
-                "v2_mdd.pure_vocal_detection.enable_relative_energy_mode=false (the legacy "
-                "multi-feature detector, ops/voice.py) is not in the PyTorch port yet: "
-                "ROADMAP.md, queue 1, 'the legacy multi-feature detector'")
 
         stats = AdaptStats(
             bpm=features.bpm if features else None,
@@ -132,12 +138,25 @@ class PureVocalPauseDetector:
         rms_ratio = float(np.clip(thresholds.rms_ratio * vpp_mult, peak_ratio + 0.02, 0.72))
 
         pauses = self._detect_energy_valleys(rms, fps, peak_ratio, rms_ratio, cfg, features, focus_windows)
+        vocal_audio = None
+        if not cfg.get("enable_relative_energy_mode", True):
+            if stems is None or stems.vocal_device is None:
+                raise ValueError(
+                    "legacy multi-feature mode (enable_relative_energy_mode=false) "
+                    "needs the vocal waveform; pass the stems"
+                )
+            vocal_audio = stems.vocal_track
+            # legacy multi-feature mode: rescore the valleys by voicing,
+            # formant, spectral and duration evidence
+            pauses = self._apply_multi_feature_scoring(
+                pauses, vocal_audio, stems.vocal_device, cfg, features)
         pauses = self._compress(pauses, cfg)
         pauses = self._total_valley_cap(pauses, n_wave / self.sr)
         if enable_mdd and features is not None:
             pauses = self._apply_mdd_enhancement(pauses, features, focus_windows)
         pauses = self._calculate_precise_cut_points(
-            pauses, env_db_grid=env_db_grid, env_db_stride=env_db_stride, n_samples=n_wave)
+            pauses, vocal_audio, env_db_grid=env_db_grid, env_db_stride=env_db_stride,
+            n_samples=n_wave)
         # final min-pause filter at the configured duration
         min_pause = resolve_min_pause(float(cfg.get("min_pause_duration", 0.5)), 1.0, stats)
         return [p for p in pauses if p.duration >= min(min_pause, 0.5) or p.pause_type.startswith("energy_valley")]
@@ -197,6 +216,85 @@ class PureVocalPauseDetector:
                 cut_point=(start_t + end_t) / 2.0,
             ))
         return pauses
+
+    def _apply_multi_feature_scoring(
+        self,
+        pauses: List[PureVocalPause],
+        vocal_audio: np.ndarray,
+        vocal_stem: torch.Tensor,
+        cfg: Dict[str, Any],
+        features: Optional[TrackFeatures],
+    ) -> List[PureVocalPause]:
+        """Legacy weighted multi-feature confidence: f0 evidence = absence of
+        voiced frames inside the pause (batched YIN with Viterbi pitch
+        tracking), formant evidence = absence of vocal-tract resonance (LPC
+        residual), spectral evidence = how noise-like (flat) the pause is,
+        duration evidence = longer pauses cut better. YIN and LPC run once
+        over the whole stem ``vocal_stem`` on its device, not per pause; the host vocal ``vocal_audio`` gives the
+        pause lengths in samples and the formant frequencies."""
+        if not pauses:
+            return pauses
+        from audio_cut_tpu_torch.ops.voice import (  # noqa: PLC0415 (legacy mode only)
+            lpc_formant_frequencies,
+            lpc_formant_strength,
+            yin_f0,
+        )
+
+        w_f0 = float(cfg.get("f0_weight", 0.3))
+        w_formant = float(cfg.get("formant_weight", 0.25))
+        w_spectral = float(cfg.get("spectral_weight", 0.25))
+        w_duration = float(cfg.get("duration_weight", 0.2))
+        voiced_thr = float(cfg.get("voicing_threshold", 0.55))
+        sr = self.sr
+
+        hop_s = self.VALLEY_HOP_S
+        _, voicing = yin_f0(vocal_stem, sr, hop_s=hop_s)
+        formant = lpc_formant_strength(vocal_stem, sr, hop_s=hop_s)
+        vfps = 1.0 / hop_s
+
+        out: List[PureVocalPause] = []
+        for p in pauses:
+            a = max(0, int(p.start_time * sr))
+            b = min(vocal_audio.size, int(p.end_time * sr))
+            if b - a < 256:
+                out.append(p)
+                continue
+            fa = int(p.start_time * vfps)
+            fb = int(p.end_time * vfps)
+            v_seg = voicing[fa:min(fb, voicing.size)]
+            f_seg = formant[fa:min(fb, formant.size)]
+            # fraction of pause frames where YIN finds a confident pitch
+            voiced_frac = float(np.mean(v_seg >= voiced_thr)) if v_seg.size else 0.0
+            f0_score = float(np.clip(1.0 - voiced_frac, 0.0, 1.0))
+            # vocal-tract resonance left in the pause
+            formant_score = float(np.clip(1.0 - f_seg.mean(), 0.0, 1.0)) if f_seg.size else 0.5
+
+            flat_score = 0.5
+            if features is not None and features.flatness.size:
+                st = features.window_stats("flatness", p.start_time, p.end_time)
+                flat_score = float(np.clip(st["mean"], 0.0, 1.0))  # noise-like pause
+            dur_score = float(np.clip((p.duration - 0.2) / 1.3, 0.0, 1.0))
+
+            confidence = float(np.clip(
+                w_f0 * f0_score + w_formant * formant_score + w_spectral * flat_score
+                + w_duration * dur_score,
+                0.1, 0.99,
+            ))
+            feats = {**p.features, "f0_score": f0_score, "formant_score": formant_score,
+                     "flatness_score": flat_score, "duration_score": dur_score}
+            if formant_score < 0.5:
+                # a suspicious pause (resonance present): its resonances, for debugging
+                feats["formant_freqs_hz"] = [
+                    round(float(f), 1)
+                    for f in lpc_formant_frequencies(vocal_audio[a:b], sr)[:4]
+                ]
+            out.append(PureVocalPause(
+                start_time=p.start_time, end_time=p.end_time, duration=p.duration,
+                pause_type="multi_feature", confidence=confidence,
+                features=feats,
+                cut_point=p.cut_point, quality_grade=p.quality_grade,
+            ))
+        return out
 
     # -- compression / caps ---------------------------------------------------
 
@@ -309,6 +407,7 @@ class PureVocalPauseDetector:
     def _calculate_precise_cut_points(
         self,
         pauses: List[PureVocalPause],
+        vocal_audio: Optional[np.ndarray],
         *,
         env_db_grid: np.ndarray,
         env_db_stride: int,
@@ -316,7 +415,9 @@ class PureVocalPauseDetector:
     ) -> List[PureVocalPause]:
         """The quietest point of each pause on the dB grid, a lookahead guard,
         and the pause midpoint where the chosen cut is not quiet relative to
-        the pause's own floor."""
+        the pause's own floor: with the host vocal ``vocal_audio``, the
+        sample at the cut against a percentile of the pause's 8x-decimated
+        |vocal|; without it, the dB grid at the cut against its percentile."""
         n_wave = int(n_samples)
         if not pauses or n_wave == 0:
             return pauses
@@ -330,6 +431,10 @@ class PureVocalPauseDetector:
         grid_sr = sr / stride
         guard = max(0, int(guard_ms / 1000.0 * grid_sr))
         n_grid = env_db.size
+        # 8x-decimated |x| for the silence-floor percentile: pauses span
+        # seconds, and the decimated distribution serves a floor as well
+        dec = 8
+        abs_dec = np.abs(vocal_audio[::dec]) if vocal_audio is not None else None
         floor_allow_db = 20.0 * np.log10(max(float(floor_allow), 1e-6))
 
         for p in pauses:
@@ -343,10 +448,16 @@ class PureVocalPauseDetector:
                 if g_end > cut:
                     cut = cut + int(np.argmin(env_db[cut:g_end]))
             cut_sample = min(n_wave - 1, cut * stride)
-            # the silence-floor check in the dB domain: is the short-window
-            # RMS at the cut quiet relative to this pause's own floor
-            floor_db = float(np.percentile(env_db[a:b], floor_pct))
-            fallback = float(env_db[cut]) > floor_db + floor_allow_db
+            if abs_dec is not None:
+                da = max(0, int(round(p.start_time * sr / dec)))
+                db_ = min(abs_dec.size, int(round(p.end_time * sr / dec)))
+                floor_val = float(np.percentile(abs_dec[da:db_], floor_pct)) if db_ > da else 0.0
+                fallback = floor_val > 0.0 and abs(float(vocal_audio[cut_sample])) > floor_val * floor_allow
+            else:
+                # the silence-floor check in the dB domain: is the short-window
+                # RMS at the cut quiet relative to this pause's own floor
+                floor_db = float(np.percentile(env_db[a:b], floor_pct))
+                fallback = float(env_db[cut]) > floor_db + floor_allow_db
             if fallback:
                 sa = max(0, int(round(p.start_time * sr)))
                 sb = min(n_wave, int(round(p.end_time * sr)))

@@ -29,7 +29,7 @@ import logging
 import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -58,6 +58,9 @@ from audio_cut_tpu_torch.lyrics.providers import (
     NullLyricsProvider,
     build_lyrics_provider,
 )
+
+if TYPE_CHECKING:
+    from audio_cut_tpu_torch.separation.engine import SeparationResult
 
 logger = logging.getLogger(__name__)
 
@@ -94,11 +97,14 @@ class VocalPhraseBoundaryDetector:
         duration_s: float,
         bundle,
         output_dir: Optional[str] = None,
-        vocal_device=None,
+        stems: Optional[SeparationResult] = None,
     ) -> VPBDDetectionResult:
         """Candidates, scores and the plan, from the bundle's envelopes.
-        ``vocal_device`` is the vocal stem on its device, from which
-        ``vpbd_asr`` makes the ASR copy when it aligns lyrics."""
+        ``stems.vocal_device`` is the vocal stem on its device, from which
+        ``vpbd_asr`` makes the ASR copy when it aligns lyrics. The legacy
+        multi-feature detector (``enable_relative_energy_mode: false``) runs
+        YIN and LPC on it, and also reads its host copy
+        ``stems.vocal_track``."""
         effective_mode = mode
         timeline: Optional[LyricsTimeline] = None
         lyrics_meta: Optional[Dict[str, Any]] = None
@@ -106,7 +112,8 @@ class VocalPhraseBoundaryDetector:
 
         # -- lyrics priors (vpbd_asr only) -----------------------------------
         if mode == "vpbd_asr":
-            timeline, lyrics_meta, fallback_reason = self._align_lyrics(vocal_device, duration_s)
+            timeline, lyrics_meta, fallback_reason = self._align_lyrics(
+                stems.vocal_device if stems is not None else None, duration_s)
             if timeline is None:
                 effective_mode = str(get_config("vpbd.fallback_mode", "vpbd_acoustic"))
                 note = f"lyrics_unavailable:{fallback_reason}"
@@ -123,6 +130,7 @@ class VocalPhraseBoundaryDetector:
             env_db_grid=bundle.vocal_db_fine,
             env_db_stride=bundle.db_stride,
             n_samples=n_samples,
+            stems=stems,
         )
         breath_range = tuple(get_config("v2_mdd.pure_vocal_detection.breath_duration_range", [0.1, 0.3]))
         acoustic = adapt_acoustic_pauses(

@@ -25,7 +25,11 @@ the pass (audio, stems, bundle) is stashed on the splitter for that run.
 stem (``detection/vpbd.py``); the timeline's words then keep the valley
 snap, the guard restore and the valley refine out of recognised words, and
 its sentence edges feed the layout's rescue scoring. With it off, the
-default, ``vpbd_asr`` runs the acoustic path as in the JAX package.
+default, ``vpbd_asr`` runs the acoustic path as in the JAX package. With
+``v2_mdd.pure_vocal_detection.enable_relative_energy_mode: false`` the pause
+detector (of ``v2.2_mdd`` and of the vpbd pool) also reads the vocal: the
+stem on its device for YIN and LPC, and its host copy, downloaded once and
+shared with the vocal segments' export.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import logging
 import os
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 
 import numpy as np
 from torch.profiler import record_function
@@ -74,6 +78,9 @@ from audio_cut_tpu_torch.pipeline.classify import (
     pure_music_spans,
 )
 from audio_cut_tpu_torch.pipeline.split import split_at_sample_level
+
+if TYPE_CHECKING:
+    from audio_cut_tpu_torch.separation.engine import SeparationResult
 
 logger = logging.getLogger(__name__)
 
@@ -126,7 +133,7 @@ def process_pure_vocal_split(
         sep.separation_confidence = float(np.clip(1.0 - abs(ratio - 0.35) / 0.65, 0.1, 0.99))
     with record_function("host_tail"):
         plan = _plan_cuts(audio, sr, bundle, vad_detector, vad_model, qc, eqc, lbr,
-                          mode=mode, output_dir=output_dir, vocal_device=sep.vocal_device)
+                          mode=mode, output_dir=output_dir, stems=sep)
     cut_samples, flags, debug = plan["cut_samples"], plan["flags"], plan["debug"]
     refine_result = plan["refine_result"]
 
@@ -186,15 +193,18 @@ def fused_pass_key(input_path: str):
 def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
                qc: Dict[str, Any], eqc: Dict[str, Any], lbr: Dict[str, Any], *,
                mode: str = "v2.2_mdd", output_dir: Optional[str] = None,
-               vocal_device=None) -> Dict[str, Any]:
+               stems: Optional[SeparationResult] = None) -> Dict[str, Any]:
     """The host tail from the bundle to the final cut samples, their flags
     and debug entries: VAD focus windows, the mode's candidates, guards,
     layout, the valley refine, classification and the weak-tail merge. For
     the vpbd modes it applies the smart-cut runtime overrides to the config,
     which the caller restores, and writes the candidate debug JSON to
-    ``output_dir`` when one is given. ``vocal_device`` is the vocal stem on
-    its device, which ``vpbd_asr`` reads for the ASR copy when it aligns
-    lyrics."""
+    ``output_dir`` when one is given. ``stems`` are the track's separation:
+    ``vpbd_asr`` reads its device vocal for the ASR copy when it aligns
+    lyrics, and the legacy multi-feature detector
+    (``enable_relative_energy_mode: false``) for YIN and LPC; that detector
+    also reads its host vocal, which the stems copy from the device once, on
+    first use."""
     duration = len(audio) / float(sr)
     features = bundle.features
 
@@ -228,7 +238,7 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
         auto_profile = _apply_smart_cut_runtime(features)
         vres = VocalPhraseBoundaryDetector(sr).detect(
             mode=mode, features=features, focus_windows=focus, duration_s=duration,
-            bundle=bundle, output_dir=output_dir, vocal_device=vocal_device,
+            bundle=bundle, output_dir=output_dir, stems=stems,
         )
         raw_points = [CutPoint(c.t, c.score, kind=c.source.value) for c in vres.selected]
         if not raw_points and vres.plan.rescue_points:
@@ -247,6 +257,7 @@ def _plan_cuts(audio: np.ndarray, sr: int, bundle, vad_detector, vad_model,
             env_db_grid=bundle.vocal_db_fine,
             env_db_stride=bundle.db_stride,
             n_samples=len(audio),
+            stems=stems,
         )
         raw_points = [
             CutPoint(p.cut_point if p.cut_point > 0 else (p.start_time + p.end_time) / 2.0,

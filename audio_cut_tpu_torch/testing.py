@@ -68,3 +68,23 @@ def k1w_error(got: torch.Tensor, g: torch.Tensor, frames: torch.Tensor,
     scale = (raw * frames).abs().sum(dim=tuple(range(raw.ndim - 1)))
     err = (got - want).abs()
     return float(err.max()), float((err / scale.clamp_min(1e-30)).max())
+
+
+def _onset64(mag: np.ndarray) -> np.ndarray:
+    """K2's onset of a magnitude spectrogram [T, F] (the plain version's
+    formula), in float64."""
+    logmag = np.log1p(1000.0 * np.asarray(mag, np.float64))
+    flux = np.diff(logmag, axis=-2, prepend=logmag[..., :1, :])
+    return np.clip(flux, 0.0, None).mean(axis=-1)
+
+
+def onset_allowed(mag_a: np.ndarray, mag_b: np.ndarray) -> np.ndarray:
+    """Per frame, how far the onsets (K2's: the mean over bins of
+    clamp(diff over frames of log1p(1000 |X|), 0)) of two magnitude
+    spectrograms [T, F] of one signal differ: the onset of each, in
+    float64, and their difference. Two libraries' FFTs of one signal round
+    differently, and log1p(1000 |X|) magnifies that up to 1000-fold in
+    near-silent bins; this follows the spectrograms' own difference instead
+    of a fixed tolerance, and leaves to the caller only the rounding of the
+    onset itself (K2's against its plain version)."""
+    return np.abs(_onset64(mag_a) - _onset64(mag_b))

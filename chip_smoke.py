@@ -24,9 +24,10 @@
    plain backward, the backward of ``F.fold`` and their bounds;
 4. holds kernel K2 (spectral flatness and onset, ``csrc/frame_stats.cu``)
    against its plain version at rtol 2e-4 / atol 2e-5, at the feature grids of
-   a 60 s and a 3-minute song, edge shapes (``K2_SHAPES``) and a
-   spectrogram that starts off a 16 B boundary, and times it at the 60 s
-   shape beside its plain version and its bound.
+   a 60 s and a 3-minute song, edge shapes, librosa_onset's grid of a 60 s
+   song (``K2_SHAPES``) and a spectrogram that starts off a 16 B boundary,
+   and times it at the bundle's 60 s grid and at librosa_onset's
+   (``K2_TIMED_SHAPES``) beside its plain version and its bound.
    Device times come from a CUDA graph replay; the wrapper's time per call
    from Python is printed apart;
 5. drives the main path: ``separate_and_segment()`` with no mode (v2.2_mdd)
@@ -82,6 +83,30 @@
    the result's lib flag is set; at least one segment of the phase carries
    ``_lib``. Prints each call's wall time, its ``_lib`` count and cuts, and
    the phase's peak memory;
+   Then ``mode="librosa_onset"`` on the 60 s song with
+   ``export_types=("mix_segments", "vocal_segments")``, cold and warm with the
+   separation (the default), once with ``use_vocal_separation: false`` and
+   once with the separation on a song whose first ``INTRO_S`` s are the beat
+   alone: every call reports ``smart_segment_v2`` and splices back exactly;
+   with the separation K1 3 and K2 1 and one vocal segment per segment,
+   without it K1 0, K2 1 and every label human; the intro call gives a
+   music segment; K0 once in the phase. The warm call's features (hop 512)
+   are held to the CPU's within ``BUNDLE_TOL``, the onset within what the two
+   sides' spectrograms allow (``check_onset``), and its cuts to the CPU's
+   run of the same host logic over the CPU's features within the shift that
+   the bpm's tolerance allows the last bar edge. Prints each call's wall
+   time, bpm, bar duration, silence boundaries, labels and peak memory;
+   Then the legacy multi-feature detector (``LEGACY``) on the 60 s song:
+   v2.2_mdd cold and warm and vpbd_acoustic once, each with K1 3 and K2 1
+   (K0 once in the phase), multi_feature pauses and the exact splice; YIN
+   and LPC on the warm call's vocal stem on the card against the CPU
+   (voicing and formant strength within ``VOICING_ATOL``, f0 within
+   ``F0_HZ`` on ``F0_MIN_SHARE`` of frames); the warm call's pauses against
+   the detector on the CPU's bundle with YIN and LPC on the CPU (the same
+   count, confidences within ``LEGACY_CONF_ATOL``, cuts at most one dB-grid
+   stride apart); the warm call's audio-s per wall-s beside the default
+   warm call's, and the fenced split of YIN's and LPC's time (device part,
+   download, host Viterbi) beside the vocal download;
 6. computes the detection bundle from the warm call's stems on the card and
    on the CPU (plain versions, float32) and holds every output of the card to
    the CPU's within the bounds of ``BUNDLE_TOL``, K2 on the main path's own
@@ -122,16 +147,18 @@
     (``K1W_EDGE_SHAPES`` of ``audio_cut_tpu_torch/testing.py``, which the
     card tests share: one frame, fewer rows than its cluster, rows its
     cluster does not divide, a ragged column tile, the scalar path by hop and
-    by alignment), checks that two launches give the same bits, that one
-    profiled call runs one device kernel and that a trainable window through
-    ``windowed_ola`` launches K1W once with the same bits, and times K1W at
+    by alignment), checks that a trainable window through ``windowed_ola``
+    launches K1W once with the same bits as a direct call, and times K1W at
     ``K1W_TIMED_SHAPES`` beside its plain version, the one-call
     ``torch.einsum`` yardstick (and ``F.fold``'s autograd at the training
     shape) and its bound. It runs after the main path and training, so that
     the cuBLAS workspace the ``torch.einsum`` yardstick leaves allocated is
-    not counted in their peak memory;
+    not counted in their peak memory. Its two other checks run right after
+    4, before any serving phase (``check_k1w_profile``): two launches give
+    the same bits, and one profiled call runs one device kernel;
 13. prints a ``kernels`` JSON line (K1's entry also lists its times at the
-    serving shape and the spectral backend's under ``shapes``) and, last,
+    serving shape and the spectral backend's under ``shapes``, K2's at the
+    bundle's grid and librosa_onset's) and, last,
     ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
@@ -167,6 +194,8 @@ OLA_BWD_RTOL = 1e-5
 # and a hop that is no multiple of 4, for the backward kernels' scalar path
 TRAIN_OLA_SHAPE = (4, 128, 6144, 1024)
 SCALAR_OLA_SHAPE = (2, 7, 90, 30)
+# profiler sessions of one K1W call, while a session records no device kernel
+K1W_PROFILE_TRIES = 3
 # K1W timed at the training shape and the largest of OLA_SHAPES (1,024 rows)
 K1W_TIMED_SHAPES = [TRAIN_OLA_SHAPE, (4, 256, 6144, 1024)]
 TRAIN_STEPS = 20
@@ -188,9 +217,12 @@ OLA_SHAPES = [(4, 256, 6144, 1024), (3, 256, 6144, 1024), (None, 21, 512, 128), 
 # then of a 3-minute song, the JAX package's edge shape and a single frame;
 # then edges: one more frame than an H100 has SMs (133) and fewer (50),
 # 1024 bins (every row 16 B aligned, each thread 4 bins), rows narrower than
-# a warp (3 bins, 1 bin)
+# a warp (3 bins, 1 bin); last the grid librosa_onset gives it on a 60 s song
+# (hop 512 over the 60 s bucket)
 K2_SHAPES = [(1201, 1025), (3601, 1025), (257, 129), (1, 1025),
-             (133, 1025), (50, 1025), (300, 1024), (77, 3), (64, 1)]
+             (133, 1025), (50, 1025), (300, 1024), (77, 3), (64, 1), (5168, 1025)]
+# K2 timed at the bundle's grid and at librosa_onset's
+K2_TIMED_SHAPES = [K2_SHAPES[0], K2_SHAPES[-1]]
 K0_TURNS = 12  # rounds of (torch.mul, K0, K0, torch.mul), one timed graph replay each
 K2_RTOL, K2_ATOL = 2e-4, 2e-5
 # the card's bundle against the CPU's, (rtol, atol) per output:
@@ -226,6 +258,28 @@ SPECTRAL = {"enhanced_separation.backend": "spectral"}
 SPECTRAL_SNR_DB = 60.0
 # the median network's elementwise kernels in a profile of a spectral call
 MEDIAN_KERNELS = ("minimum", "maximum")
+# the librosa_onset phase: its exports, and the voice's start in the song
+# with a beat-only intro (the music-label call)
+LIBROSA_EXPORTS = ("mix_segments", "vocal_segments")
+INTRO_S = 8.0
+# the legacy phase: the multi-feature detector's switch; YIN and LPC on the
+# card against the CPU (cuFFT and the CPU's FFT round differently, which may
+# flip a frame across YIN's 0.15 dip rule or the Viterbi's choice of bin);
+# a pause's confidence moves by at most f0_weight (0.3) / 20 frames x the
+# MDD multiplier's 1.4 when one 10 ms frame of the shortest (0.2 s) pause
+# flips across the voicing threshold
+LEGACY = {"v2_mdd.pure_vocal_detection.enable_relative_energy_mode": False}
+# for comparison only (printed, not held): the textbook bound of librosa_onset's
+# STFT (n_fft 2048) on the card against the CPU's, per frame, ||card - CPU||_2
+# <= STFT_REL * ||X||_2, if each side's float32 FFT were radix-2 with exact
+# twiddles: log2(n) * eta each, eta = u + gamma_4 (sqrt(2) + u), about
+# (1 + 4 sqrt(2)) u (Higham, Accuracy and Stability of Numerical Algorithms,
+# 2nd ed., Theorem 24.2), and u each for the window and its product
+STFT_REL = (2 * 11 * (1 + 4 * 2 ** 0.5) + 4) * 2.0 ** -24
+VOICING_ATOL = 1e-3
+F0_HZ, F0_MIN_SHARE = 0.5, 0.995
+LEGACY_CONF_ATOL = 0.3 / 20 * 1.4
+WALLS = {}  # label -> wall seconds of the calls that later phases print beside theirs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -241,7 +295,8 @@ def nvidia_smi_line() -> str:
 
 
 def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional[float] = None,
-              stop_time_s: Optional[float] = None, phrases: Optional[list] = None):
+              stop_time_s: Optional[float] = None, phrases: Optional[list] = None,
+              intro_s: float = 0.0):
     """Synthetic song: harmonic vocal-like phrases over a percussive bed,
     with quiet gaps (the generator of the repository's tests). With
     ``chorus_s``, the bed is three times as loud from that time on and
@@ -251,7 +306,8 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional
     sings 1.8 s phrases that start on the beat grid, 3 s apart: a
     high-energy section whose rests are silent and hold two beats, the
     first 0.2 s after the phrase's end, where hybrid_mdd's snap to a quiet
-    beat can take effect. A ``phrases`` list receives each voice phrase's
+    beat can take effect. The voice starts at ``intro_s``: before it the
+    song is the beat alone. A ``phrases`` list receives each voice phrase's
     (start, end) in seconds."""
     import numpy as np
 
@@ -267,7 +323,7 @@ def make_song(duration_s: float, sr: int = SR, seed: int = 7, chorus_s: Optional
         loud = t >= chorus_s
         audio[loud] *= 3.0
         audio[loud] += 0.2 * sum(np.sin(2 * np.pi * f * t[loud]) for f in (110.0, 138.6, 164.8))
-    phrase = 0.0
+    phrase = float(intro_s)
     while phrase + 2.5 < duration_s:
         sung = stop_time_s is not None and phrase >= stop_time_s
         length = 1.8 if sung else 2.2
@@ -693,13 +749,58 @@ def check_k1_backward(torch, dev):
     return timing, max_err_w, both
 
 
-def check_k1w(torch, dev):
-    """K1W at its edge shapes and on an unaligned view, bitwise repeatability,
-    one device kernel in a profiled call, one launch through autograd with a
-    trainable window; device times at K1W_TIMED_SHAPES. Returns (largest
-    |K1W - plain|, the training shape's timing)."""
+def check_k1w_profile(torch, dev) -> None:
+    """K1W at the training shape: two launches give the same bits, and one
+    profiled call runs one device kernel. It runs before the serving phases:
+    in a process that has already profiled the serving calls and a train
+    step, this short session often records nothing on the card; run first,
+    it records the kernel."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from audio_cut_tpu_torch.ops.ola import ola_backward_window_cuda
+    from audio_cut_tpu_torch.ops.stft import hann_window
+    from audio_cut_tpu_torch.testing import k1w_inputs
+
+    batch, n, L, hop = TRAIN_OLA_SHAPE
+    frames, g = k1w_inputs((batch, n, L), hop, 17, dev)
+    window = hann_window(L, device=dev)
+    first = ola_backward_window_cuda(g, frames, window, hop)
+    second = ola_backward_window_cuda(g, frames, window, hop)
+    torch.cuda.synchronize()
+    print(f"K1W {tuple(frames.shape)}: two launches give the same bits: {torch.equal(first, second)}")
+    if not torch.equal(first, second):
+        fail("two K1W launches on the same inputs differ")
+
+    # one warm-up step before the recorded one: a short session's first
+    # kernels can go unrecorded while the tracer starts (runs that profiled
+    # this one call alone have recorded no kernel at all). A session that
+    # records nothing on the card says nothing of the call, which ran (its
+    # bits were checked above): it is profiled again, at most
+    # K1W_PROFILE_TRIES times; any other count or kernel fails at once
+    for attempt in range(K1W_PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                ola_backward_window_cuda(g, frames, window, hop)
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own range also shows on the card's timeline: not a kernel
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
+        print(f"K1W profiled call (session {attempt + 1}): {len(on_card)} device kernel(s): "
+              f"{on_card}")
+        if on_card:
+            break
+    if len(on_card) != 1 or "ola_backward_window_kernel" not in on_card[0]:
+        fail(f"one K1W call ran {on_card} on the card, not one K1W kernel")
+
+
+def check_k1w(torch, dev):
+    """K1W at its edge shapes and on an unaligned view, one launch through
+    autograd with a trainable window (the same bits as a direct call);
+    device times at K1W_TIMED_SHAPES. Returns (largest |K1W - plain|, the
+    training shape's timing)."""
     from audio_cut_tpu_torch.ops.ola import (
         K1B, K1W, ola_backward_window_cuda, window_plan, windowed_ola,
         windowed_ola_backward_reference)
@@ -729,28 +830,6 @@ def check_k1w(torch, dev):
     frames, g = k1w_inputs((batch, n, L), hop, 17, dev)
     window = hann_window(L, device=dev)
     first = ola_backward_window_cuda(g, frames, window, hop)
-    second = ola_backward_window_cuda(g, frames, window, hop)
-    torch.cuda.synchronize()
-    print(f"K1W {tuple(frames.shape)}: two launches give the same bits: {torch.equal(first, second)}")
-    if not torch.equal(first, second):
-        fail("two K1W launches on the same inputs differ")
-
-    # one warm-up step before the recorded one: a short session's first
-    # kernels can go unrecorded while the tracer starts (runs that profiled
-    # this one call alone have recorded no kernel at all)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            ola_backward_window_cuda(g, frames, window, hop)
-            torch.cuda.synchronize()
-            prof.step()
-    # the step's own range also shows on the card's timeline: not a kernel
-    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
-    print(f"K1W profiled call: {len(on_card)} device kernel(s): {on_card}")
-    if len(on_card) != 1 or "ola_backward_window_kernel" not in on_card[0]:
-        fail(f"one K1W call ran {on_card} on the card, not one K1W kernel")
-
     trainable = window.clone().requires_grad_(True)
     b0, w0 = K1B.launches, K1W.launches
     windowed_ola(frames, trainable, hop).backward(g)
@@ -855,15 +934,25 @@ def check_k2(torch, dev):
             fail(f"K2 disagrees with its plain version on an unaligned view in {name}: {err}")
         max_err = max(max_err, err)
 
-    # rotate over 12 inputs (12 x 4.9 MB > the 50 MB L2): each launch reads
-    # its spectrogram from device memory
-    nxt = _rotating([torch.from_numpy(_k2_inputs(t, f, seed=100 + k)).to(dev) for k in range(12)])
+    return max_err, [time_k2(torch, dev, t, f) for t, f in K2_TIMED_SHAPES]
+
+
+def time_k2(torch, dev, t: int, f: int):
+    """K2's device time at (t, f) beside its plain version and its bound."""
+    from audio_cut_tpu_torch.ops.frame_stats import spectral_stats_cuda, spectral_stats_reference
+
+    # rotate over inputs that together exceed the 50 MB L2 (12 x 4.9 MB at
+    # the bundle's grid): each launch reads its spectrogram from device memory
+    count = max(2, -(-12 * 1201 // t))
+    nxt = _rotating([torch.from_numpy(_k2_inputs(t, f, seed=100 + k)).to(dev)
+                     for k in range(count)])
 
     moved = (t * f + 2 * t) * 4
     # per bin: 2 products, 2 adds, log, 2 log1p, a subtract, a max, 2 adds
     ops = 11 * t * f
     bound = max(moved / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     timing = {
+        "shape": [t, f],
         "ms": device_ms(lambda: spectral_stats_cuda(nxt())),
         "plain_ms": device_ms(lambda: spectral_stats_reference(nxt())),
         "library_ms": None,  # no single PyTorch call computes flatness and onset
@@ -871,13 +960,14 @@ def check_k2(torch, dev):
         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
     }
     wrapper_ms = call_ms(lambda: spectral_stats_cuda(nxt()))
-    print(f"K2 main-path shape ({t}, {f}), device time per call (CUDA graph replay of 100 calls, "
+    print(f"K2 shape ({t}, {f}), device time per call (CUDA graph replay of 100 calls, "
           f"median of 5): kernel {timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms; bound "
-          f"{bound:.4f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s; {ops} operations at "
-          f"{F32_FLOPS:.3e}/s; bound by {timing['bound_by']}); no library call")
-    print(f"K2 main-path shape: wrapper called from Python 100 times in a row, "
+          f"{bound:.5f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s; {ops} operations at "
+          f"{F32_FLOPS:.3e}/s; bound by {timing['bound_by']}); no library call; kernel at "
+          f"{bound / timing['ms']:.3f} of its bound")
+    print(f"K2 shape ({t}, {f}): wrapper called from Python 100 times in a row, "
           f"{wrapper_ms:.4f} ms per call (CUDA events; includes the host's launch rate)")
-    return max_err, timing
+    return timing
 
 
 class _Capture:
@@ -953,6 +1043,7 @@ def run_mdd(torch, dev, work: Path, audio):
             wall = time.perf_counter() - t0
             k1, k2 = K1.launches - k1, K2.launches - k2
             label = "cold" if call == 0 else "warm"
+            WALLS[f"v2.2_mdd {label}"] = wall
             print(f"v2.2_mdd call {call} ({label}): {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s "
                   f"per wall-s, fused pass {m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, "
                   f"K1 launches {k1}, K2 launches {k2}")
@@ -1125,6 +1216,346 @@ def run_hybrid(torch, dev, work: Path, songs):
     if lib_total == 0:
         fail("hybrid_mdd: no segment of the phase carries _lib")
     print(f"hybrid_mdd: torch.cuda.max_memory_allocated = {torch.cuda.max_memory_allocated(dev)} bytes")
+
+
+def run_librosa(torch, dev, work: Path, audio, intro):
+    """librosa_onset through the entry point with no device, with the
+    packaged ConvTDF-large, on the main path's song: cold, warm (both with
+    the separation, the default), then once with
+    ``librosa_onset.use_vocal_separation: false``; then once with the
+    separation on ``song_intro.wav`` (``intro``: the beat alone for its first
+    ``INTRO_S`` s). Every call must report ``smart_segment_v2`` and splice
+    back exactly; with the separation it launches K1 3 times and K2 once
+    and writes one vocal segment per segment, without it K1 0 times and K2
+    once and labels every segment human; the intro call gives a music
+    segment; the phase launches K0 once. The warm call's features are held
+    to the CPU's ``build_track_features`` on the same mix within
+    ``BUNDLE_TOL``, the onset within what the two sides' spectrograms allow
+    (``check_onset``), and its cuts to the CPU's run of the same host logic
+    (``plan_onset_cuts``) over the CPU's features, within the shift that
+    the bpm's tolerance allows the last bar edge."""
+    import math
+
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.analysis.features import build_track_features
+    from audio_cut_tpu_torch.config import get_config
+    from audio_cut_tpu_torch.pipeline import splitter
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the librosa_onset path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+    calls = [("cold", "song.wav", audio, {}), ("warm", "song.wav", audio, {}),
+             ("no separation", "song.wav", audio, {"librosa_onset.use_vocal_separation": False}),
+             ("beat-only intro", "song_intro.wav", intro, {})]
+    features = []
+    inner = splitter.build_track_features
+
+    def capture(*args, **kwargs):
+        features.append(inner(*args, **kwargs))
+        return features[-1]
+
+    splitter.build_track_features = capture
+    try:
+        results = []
+        for call, (label, name, song_audio, overrides) in enumerate(calls):
+            out = work / f"onset{call}"
+            k1, k2 = K1.launches, K2.launches
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / name), export_dir=str(out),
+                                     mode="librosa_onset", export_types=LIBROSA_EXPORTS,
+                                     runtime_overrides=overrides)
+            wall = time.perf_counter() - t0
+            k1, k2 = K1.launches - k1, K2.launches - k2
+            tag = f"librosa_onset call {call} ({label}, {name})"
+            smart = m.get("smart_segmentation") or {}
+            labels = [s["label"] for s in m["segments"]]
+            print(f"{tag}: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, K1 launches "
+                  f"{k1}, K2 launches {k2}; bpm {smart.get('bpm')!r}, bar duration "
+                  f"{smart.get('bar_duration_s')!r} s, silence boundaries "
+                  f"{smart.get('silence_boundaries')}; {len(labels)} segments {labels}, cuts "
+                  f"(samples) {m['cuts']['samples']}; peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev)} bytes")
+            if smart.get("method") != "smart_segment_v2":
+                fail(f"{tag}: smart_segmentation {smart}")
+            check_segments(m, out, song_audio)
+            separated = not overrides
+            if separated:
+                if k1 != 3 or k2 != 1 or m["gpu"]["gpu_pipeline_device"] != "cuda":
+                    fail(f"{tag}: K1 {k1}, K2 {k2}, gpu {m.get('gpu')}; expected K1 3 and K2 1 "
+                         f"on cuda")
+                vocal = m["artifacts"].get("human_segments", [])
+                if len(vocal) != len(labels) or not all((out / v).is_file() for v in vocal):
+                    fail(f"{tag}: {len(vocal)} vocal segments for {len(labels)} segments")
+            else:
+                if k1 != 0 or k2 != 1 or set(labels) != {"human"}:
+                    fail(f"{tag}: K1 {k1}, K2 {k2}, labels {labels}; expected K1 0, K2 1 and "
+                         f"every segment human")
+            if label == "beat-only intro" and "music" not in labels:
+                fail(f"{tag}: no music segment on a song whose first {INTRO_S} s are the beat "
+                     f"alone: {labels}")
+            results.append(m)
+    finally:
+        splitter.build_track_features = inner
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"librosa_onset: launches in the {len(calls)} calls {launches}")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the librosa_onset calls; expected once")
+
+    # the warm call's features against the CPU's, and its cuts against the
+    # CPU's host logic over them
+    card = features[1]
+    cfg = get_config("librosa_onset", {}) or {}
+    hop = int(cfg.get("energy_analysis", {}).get("hop_length", 512))
+    cpu = build_track_features(audio, SR, hop_s=hop / SR, device="cpu")
+    check_onset(torch, dev, audio, hop, card.onset, cpu.onset)
+    for key in ("rms", "flatness", "mdd"):
+        g, w = getattr(card, key), getattr(cpu, key)
+        rtol, atol = BUNDLE_TOL[key]
+        err = float(np.abs(g.astype(np.float64) - w).max())
+        print(f"librosa_onset: features {key} {g.shape}: max |card - CPU| = {err:.3e} "
+              f"(rtol {rtol}, atol {atol})")
+        if g.shape != w.shape or not np.allclose(g, w, rtol=rtol, atol=atol):
+            fail(f"librosa_onset: the card's {key} disagrees with the CPU's: {err}")
+    for key, g, w in (("bpm", card.bpm, cpu.bpm), ("tempo_strength", card.tempo_strength,
+                                                   cpu.tempo_strength)):
+        rtol, atol = BUNDLE_TOL[key]
+        print(f"librosa_onset: features {key}: card {g!r}, CPU {w!r}")
+        if abs(g - w) > atol + rtol * abs(w):
+            fail(f"librosa_onset: the card's {key} {g} disagrees with the CPU's {w}")
+    plan = splitter.plan_onset_cuts(cpu, audio.size, SR, cfg)
+    got, want = results[1]["cuts"]["samples"], plan["cut_samples"]
+    bar = plan["bar_duration_s"]
+    # the bpm agrees to BUNDLE_TOL's rtol, so bar edge k moves by at most k x
+    # bar x rtol; the last edge by n_bars x bar x rtol, and int() by 1 more
+    bound = math.ceil(math.ceil(SONG_S / bar) * bar * BUNDLE_TOL["bpm"][0] * SR) + 1
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    print(f"librosa_onset: warm call's cuts {got}; the CPU's host logic over the CPU's features "
+          f"{want} (silence boundaries {plan['silence_boundaries']}); max |card - CPU| "
+          f"{max(diffs) if diffs else 0} samples (bound {bound})")
+    if len(got) != len(want) or any(d > bound for d in diffs):
+        fail(f"librosa_onset: the card's cuts {got} are not within {bound} samples of the CPU's "
+             f"{want}")
+    return launches
+
+
+def check_onset(torch, dev, audio, hop: int, got, want) -> None:
+    """librosa_onset's onset, card against CPU. Each side takes its own
+    STFT, and log1p(1000 |X|) magnifies their rounding difference up to
+    1000-fold in near-silent bins, where clamp(flux, 0) keeps the positive
+    half of it in the mean; so BUNDLE_TOL's atol (fitted at the bundle's
+    grid) is printed, not held. Held instead: each frame's onset difference
+    within the difference that the two spectrograms imply
+    (``testing.onset_allowed``: K2's onset formula over each side's
+    spectrogram in float64, and their difference), plus K2's own rounding
+    against its plain version (rtol K2_RTOL, atol K2_ATOL). How much that
+    lets through is printed: the median and largest allowance as a share
+    of the onset, and the largest allowance. The spectrograms themselves are held through the flatness
+    (BUNDLE_TOL); their per-frame difference is printed beside
+    ``STFT_REL``."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.analysis.features import _FEATURE_NFFT, pad_to_bucket
+    from audio_cut_tpu_torch.ops.stft import stft
+    from audio_cut_tpu_torch.testing import onset_allowed
+
+    padded = torch.from_numpy(pad_to_bucket(audio, SR))
+    with torch.inference_mode():
+        spec = {side: stft(padded.to(d), n_fft=_FEATURE_NFFT, hop=hop).cpu()
+                for side, d in (("card", dev), ("cpu", "cpu"))}
+    n = got.size
+    x_card, x_cpu = (spec[k].numpy()[:n].astype(np.complex128) for k in ("card", "cpu"))
+    rel = np.linalg.norm(x_card - x_cpu, axis=-1) / np.maximum(np.linalg.norm(x_cpu, axis=-1),
+                                                               1e-30)
+    allowed = onset_allowed(np.abs(x_card), np.abs(x_cpu))
+    err = np.abs(got.astype(np.float64) - want)
+    slack = allowed + K2_RTOL * np.abs(want) + K2_ATOL - err
+    rtol, atol = BUNDLE_TOL["onset"]
+    beyond = int(np.sum(err > atol + rtol * np.abs(want)))
+    worst = int(np.argmax(err))
+    print(f"librosa_onset: STFT {x_card.shape} card against CPU: max per-frame ||d X|| / ||X|| "
+          f"= {rel.max():.3e} at frame {int(np.argmax(rel))} (the radix-2 bound with exact "
+          f"twiddles, STFT_REL: {STFT_REL:.3e}); {int(np.sum(rel > STFT_REL))} frames above it")
+    print(f"librosa_onset: features onset {got.shape}: max |card - CPU| = {err.max():.3e} at "
+          f"frame {worst} (value {want[worst]:.4f}, allowed there {allowed[worst]:.3e}); "
+          f"{beyond} frames beyond BUNDLE_TOL's (rtol {rtol}, atol {atol}); least slack to "
+          f"the spectrograms' bound {slack.min():.3e}")
+    live = np.abs(want) >= atol
+    share = allowed[live] / np.abs(want[live])
+    widest = int(np.argmax(allowed))
+    print(f"librosa_onset: the spectrograms' bound as a share of |onset| over the {int(live.sum())} "
+          f"frames with |onset| >= {atol}: median {np.median(share):.3e}, max {share.max():.3e}; "
+          f"largest allowance {allowed[widest]:.3e} at frame {widest} (onset {want[widest]:.4f})")
+    if slack.min() < 0:
+        fail(f"librosa_onset: the card's onset differs from the CPU's beyond what the two "
+             f"spectrograms allow (frame {int(np.argmin(slack))})")
+
+
+class _PauseCapture:
+    """Wraps the port's PureVocalPauseDetector.detect_pure_vocal_pauses to
+    keep each call's keyword arguments and pauses; the call still runs it."""
+
+    def __init__(self):
+        from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
+
+        self.cls = PureVocalPauseDetector
+        self.inner = PureVocalPauseDetector.detect_pure_vocal_pauses
+        self.calls = []
+
+    def __enter__(self):
+        inner = self.inner
+
+        def detect_pure_vocal_pauses(det, **kwargs):
+            pauses = inner(det, **kwargs)
+            self.calls.append((kwargs, pauses))
+            return pauses
+
+        self.cls.detect_pure_vocal_pauses = detect_pure_vocal_pauses
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.detect_pure_vocal_pauses = self.inner
+
+
+def _fenced_ms(torch, fn):
+    """(fn(), ms): fn's wall time between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def run_legacy(torch, dev, work: Path, audio):
+    """The legacy multi-feature detector (``LEGACY``) through the entry point
+    with no device on the main path's song: v2.2_mdd cold and warm, then
+    vpbd_acoustic once, each launching K1 3 times and K2 once (K0 once in
+    the phase) and splicing back exactly, with multi_feature pauses. Then
+    YIN and LPC on the warm call's vocal stem on the card against the same
+    functions on its host copy on the CPU; the warm call's pauses against
+    the detector's run on the CPU (the CPU's bundle of the same stems, YIN
+    and LPC on the CPU, the call's focus windows); and the split of both
+    functions' time on the card: the device part, the download and the
+    host part, beside the vocal download."""
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.analysis.bundle import DB_STRIDE, build_detection_bundle
+    from audio_cut_tpu_torch.config import get_config_manager, set_runtime_config
+    from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
+    from audio_cut_tpu_torch.models.vad import build_vad
+    from audio_cut_tpu_torch.ops import voice
+    from audio_cut_tpu_torch.separation import fused
+    from audio_cut_tpu_torch.separation.engine import SeparationResult
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the legacy path starts: only its launches count
+    K0, K1, K2 = kernels["K0"], kernels["K1"], kernels["K2"]
+    with _Capture(fused) as cap, _PauseCapture() as pauses_cap:
+        for call, mode in enumerate(["v2.2_mdd", "v2.2_mdd", "vpbd_acoustic"]):
+            out = work / f"legacy{call}"
+            k1, k2, detected = K1.launches, K2.launches, len(pauses_cap.calls)
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                     mode=mode, runtime_overrides=LEGACY)
+            wall = time.perf_counter() - t0
+            k1, k2 = K1.launches - k1, K2.launches - k2
+            tag = f"legacy {mode} call {call}"
+            pauses = pauses_cap.calls[-1][1] if len(pauses_cap.calls) > detected else []
+            types = sorted({p.pause_type for p in pauses})
+            print(f"{tag}: {wall:.3f} s wall, {SONG_S / wall:.2f} audio-s per wall-s, K1 launches "
+                  f"{k1}, K2 launches {k2}; {len(pauses)} pauses {types}; {len(m['segments'])} "
+                  f"segments {[s['label'] for s in m['segments']]}, cuts (samples) "
+                  f"{m['cuts']['samples']}")
+            if m["gpu"]["gpu_pipeline_device"] != "cuda" or k1 != 3 or k2 != 1:
+                fail(f"{tag}: K1 {k1}, K2 {k2}, gpu {m['gpu']}; expected K1 3 and K2 1 on cuda")
+            if not pauses or not all(t.startswith("multi_feature") for t in types):
+                fail(f"{tag}: pause types {types}; expected multi_feature pauses")
+            check_segments(m, out, audio)
+            if call == 1:
+                warm, warm_wall = cap.last, wall
+                card_kwargs, card_pauses = pauses_cap.calls[-1]
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"legacy: launches in the 3 calls {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    if K0.launches != 1:
+        fail(f"K0 launched {K0.launches} times in the legacy calls; expected once")
+    default = WALLS["v2.2_mdd warm"]
+    print(f"legacy: warm v2.2_mdd {SONG_S / warm_wall:.2f} audio-s per wall-s ({warm_wall:.3f} s) "
+          f"against the default detector's warm call {SONG_S / default:.2f} ({default:.3f} s)")
+
+    sep, _ = warm
+    stem, host = sep.vocal_device, sep.vocal_track
+    f_card, v_card = voice.yin_f0(stem, SR)
+    f_cpu, v_cpu = voice.yin_f0(host, SR)
+    l_card, l_cpu = voice.lpc_formant_strength(stem, SR), voice.lpc_formant_strength(host, SR)
+    v_err = float(np.abs(v_card - v_cpu).max())
+    f_share = float(np.mean(np.abs(f_card - f_cpu) <= F0_HZ))
+    l_err = float(np.abs(l_card - l_cpu).max())
+    print(f"legacy: YIN on the card's vocal stem against the CPU's on its host copy, {v_card.size} "
+          f"frames: max |voicing diff| {v_err:.3e} (atol {VOICING_ATOL}); f0 within {F0_HZ} Hz on "
+          f"{f_share:.5f} of frames (>= {F0_MIN_SHARE}), max |f0 diff| "
+          f"{float(np.abs(f_card - f_cpu).max()):.3f} Hz; LPC formant strength max |diff| "
+          f"{l_err:.3e} (atol {VOICING_ATOL})")
+    if (v_card.shape != v_cpu.shape or v_err > VOICING_ATOL or f_share < F0_MIN_SHARE
+            or l_card.shape != l_cpu.shape or l_err > VOICING_ATOL):
+        fail("legacy: YIN or LPC on the card disagrees with the CPU")
+
+    # the warm call's pauses against the detector on the CPU
+    n = audio.size
+    with torch.inference_mode():
+        cpu_bundle = build_detection_bundle(sep.mix_device.cpu(), stem.cpu(), SR, n,
+                                            vad_model=build_vad(SR, "cpu"))
+    cpu_stems = SeparationResult(None, None, "cpu", None)
+    cpu_stems.vocal_device = torch.from_numpy(host)  # the card stem's host copy
+    kwargs = dict(card_kwargs, features=cpu_bundle.features, rms_env=cpu_bundle.vocal_rms_fine,
+                  env_db_grid=cpu_bundle.vocal_db_fine, env_db_stride=cpu_bundle.db_stride,
+                  stems=cpu_stems)
+    mgr = get_config_manager()
+    snapshot = mgr.snapshot()
+    try:
+        set_runtime_config(LEGACY)
+        cpu_pauses = PureVocalPauseDetector(SR).detect_pure_vocal_pauses(**kwargs)
+    finally:
+        mgr.restore(snapshot)
+    print(f"legacy: warm call's pauses on the card {len(card_pauses)}, on the CPU {len(cpu_pauses)}")
+    for g, w in zip(card_pauses, cpu_pauses):
+        print(f"legacy: pause {g.start_time:.2f}-{g.end_time:.2f} s {g.pause_type}/{w.pause_type}: "
+              f"confidence card {g.confidence:.6f} CPU {w.confidence:.6f}; cut card "
+              f"{g.cut_point!r} CPU {w.cut_point!r}; grade {g.quality_grade}/{w.quality_grade}")
+    if len(card_pauses) != len(cpu_pauses):
+        fail("legacy: the card's and the CPU's pause counts differ")
+    stride_s = DB_STRIDE / SR
+    for g, w in zip(card_pauses, cpu_pauses):
+        if not (g.pause_type.startswith("multi_feature") and w.pause_type.startswith("multi_feature")
+                and abs(g.confidence - w.confidence) <= LEGACY_CONF_ATOL
+                and abs(g.cut_point - w.cut_point) <= stride_s + 1e-9):
+            fail(f"legacy: a pause differs beyond its bounds (confidence atol {LEGACY_CONF_ATOL}, "
+                 f"cut one dB-grid stride, {DB_STRIDE} samples)")
+    del cpu_bundle
+
+    # where the time of both functions goes on the card, fenced
+    frame, hop, tau_min, tau_max = voice.yin_geometry(SR)
+    lframe, lhop = voice.lpc_geometry(SR)
+    with torch.inference_mode():
+        for rep in range(3):
+            _, download = _fenced_ms(torch, lambda: stem.cpu())
+            (cmnd, energy), yin_dev = _fenced_ms(torch, lambda: voice._yin_cmnd(stem, frame, hop,
+                                                                              tau_max))
+            band, yin_dl = _fenced_ms(torch, lambda: torch.cat(
+                [cmnd[:, tau_min:tau_max], energy[:, None]], dim=1).cpu().numpy())
+            _, yin_host = _fenced_ms(torch, lambda: voice.yin_track(
+                band[:, :-1], band[:, -1], SR, frame, tau_min, tau_max))
+            res, lpc_dev = _fenced_ms(torch, lambda: voice._lpc_residual(stem, lframe, lhop, 12))
+            _, lpc_dl = _fenced_ms(torch, lambda: res.cpu().numpy())
+            print(f"legacy: time split {rep} (ms, fenced): vocal download ({stem.numel() * 4} B) "
+                  f"{download:.3f}; YIN device {yin_dev:.3f}, band download "
+                  f"({band.nbytes} B, {band.shape}) {yin_dl:.3f}, host Viterbi and refinement "
+                  f"{yin_host:.3f}; LPC device {lpc_dev:.3f}, download {lpc_dl:.3f}")
+            del cmnd, energy, res
+    return launches
 
 
 def run_spectral(torch, dev, work: Path, audio):
@@ -1910,7 +2341,9 @@ def main() -> int:
     k0_timing = check_k0(torch, dev)
     k1_err, k1_timing = check_k1(torch, dev)
     k1b_timing, k1w_err, _ = check_k1_backward(torch, dev)
-    k2_err, k2_timing = check_k2(torch, dev)
+    k2_err, k2_timings = check_k2(torch, dev)
+    k2_timing = k2_timings[0]
+    check_k1w_profile(torch, dev)  # before the serving phases (its docstring)
 
     from audio_cut_tpu_torch.io import write_wav
 
@@ -1931,6 +2364,11 @@ def main() -> int:
         write_wav(work / "song_stop.wav", stop, SR, subtype="FLOAT")
         run_hybrid(torch, dev, work, {"song_chorus.wav": chorus, "song_stop.wav": stop})
         del chorus, stop
+        intro = make_song(SONG_S, intro_s=INTRO_S)
+        write_wav(work / "song_intro.wav", intro, SR, subtype="FLOAT")
+        run_librosa(torch, dev, work, audio, intro)
+        del intro
+        run_legacy(torch, dev, work, audio)
         bundle_parity(torch, dev, warm, audio)
         staged_check(torch, dev, work, warm, warm_m, audio)
         del warm
@@ -2016,6 +2454,8 @@ def main() -> int:
         "bound_ms": k2_timing["bound_ms"],
         "bound_by": k2_timing["bound_by"],
         "library_ms": k2_timing["library_ms"],
+        # the bundle's grid (the numbers above) and librosa_onset's
+        "shapes": k2_timings,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

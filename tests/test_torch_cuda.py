@@ -309,3 +309,51 @@ def test_vpbd_acoustic_on_the_card_launches_k1_and_k2(cuda, tmp_path):
     assert "final_time_by_raw_time" in m["boundary_detection"]["planner"]
     assert m["auto_profile"]["intent"]["profile"] == "auto"
     assert (tmp_path / "out" / "vpbd_candidates_debug.json").exists()
+
+
+def test_yin_lpc_and_track_features_on_the_card_match_the_cpu(cuda):
+    """YIN, LPC (the legacy detector's analysis) and build_track_features at
+    librosa_onset's hop 512 on the card against the CPU, on a 12 s song.
+    Bounds: voicing and formant strength atol 1e-3 and f0 within 0.5 Hz on
+    >= 99.5% of frames (cuFFT and the CPU's FFT round differently, which may
+    flip a frame across YIN's 0.15 dip rule); the features within
+    chip_smoke.py's BUNDLE_TOL bounds (rms rtol 1e-5, flatness K2's bound,
+    mdd atol 1e-4, the bpm 1e-4 relative), the onset within the difference
+    the two sides' spectrograms imply (``testing.onset_allowed``) plus K2's
+    bound; K2 launches once."""
+    from conftest import make_song
+
+    from audio_cut_tpu_torch.analysis.features import (
+        _FEATURE_NFFT,
+        build_track_features,
+        pad_to_bucket,
+    )
+    from audio_cut_tpu_torch.ops.frame_stats import K2
+    from audio_cut_tpu_torch.ops.stft import stft
+    from audio_cut_tpu_torch.ops.voice import lpc_formant_strength, yin_f0
+    from audio_cut_tpu_torch.testing import onset_allowed
+
+    audio, sr = make_song(12.0)
+    x = torch.from_numpy(audio).to(cuda)
+    f_card, v_card = yin_f0(x, sr)
+    f_cpu, v_cpu = yin_f0(audio, sr)
+    assert f_card.shape == f_cpu.shape == ((audio.size - 1764) // 441 + 1,)
+    assert np.abs(v_card - v_cpu).max() <= 1e-3
+    assert np.mean(np.abs(f_card - f_cpu) <= 0.5) >= 0.995
+    np.testing.assert_allclose(lpc_formant_strength(x, sr), lpc_formant_strength(audio, sr),
+                               rtol=0, atol=1e-3)
+
+    k2 = K2.launches
+    card = build_track_features(audio, sr, hop_s=512 / sr, device=cuda)
+    assert K2.launches == k2 + 1
+    cpu = build_track_features(audio, sr, hop_s=512 / sr, device="cpu")
+    assert card.n_frames == cpu.n_frames == audio.size // 512 + 1
+    for name, rtol, atol in (("rms", 1e-5, 1e-7), ("flatness", 2e-4, 2e-5), ("mdd", 0.0, 1e-4)):
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name), rtol=rtol,
+                                   atol=atol, err_msg=name)
+    assert abs(card.bpm - cpu.bpm) <= 1e-4 * cpu.bpm
+    padded = torch.from_numpy(pad_to_bucket(audio, sr))
+    mags = [torch.abs(stft(padded.to(d), n_fft=_FEATURE_NFFT, hop=512)).cpu().numpy()
+            [:card.n_frames] for d in (cuda, "cpu")]
+    err = np.abs(card.onset.astype(np.float64) - cpu.onset)
+    assert np.all(err <= onset_allowed(*mags) + 2e-4 * np.abs(cpu.onset) + 2e-5)

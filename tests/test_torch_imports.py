@@ -43,6 +43,8 @@ def test_port_sources_import_nothing_forbidden():
     # and so are the lyrics providers of vpbd_asr
     assert {PORT / f"lyrics/{m}.py" for m in ("protocol", "providers", "sidecar",
                                                "cli_provider", "in_process")} <= set(files)
+    # and the legacy detector's YIN/LPC analysis
+    assert PORT / "ops/voice.py" in files
     bad = [(p.relative_to(REPO).as_posix(), m) for p in files for m in _imported_roots(p)
            if _forbidden(m)]
     assert bad == []
@@ -51,8 +53,11 @@ def test_port_sources_import_nothing_forbidden():
 def test_import_leaves_forbidden_modules_unloaded():
     code = (
         "import sys, pkgutil, importlib, audio_cut_tpu_torch\n"
-        "for m in pkgutil.walk_packages(audio_cut_tpu_torch.__path__, 'audio_cut_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(audio_cut_tpu_torch.__path__, "
+        "'audio_cut_tpu_torch.')]\n"
+        "assert 'audio_cut_tpu_torch.ops.voice' in names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -113,38 +118,6 @@ def test_sharded_training_raises():
         Trainer(sep, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Scale-out and shell"):
         make_loss_fn(sep, TrainConfig(), mesh=object())
-
-
-@pytest.mark.parametrize("mode, overrides, item", [
-    pytest.param("librosa_onset", None, "the other modes", id="librosa_onset-the other modes"),
-])
-def test_modes_outside_the_slice_raise(tmp_path, mode, overrides, item):
-    import numpy as np
-
-    from audio_cut_tpu_torch.api import separate_and_segment
-    from audio_cut_tpu_torch.io import write_wav
-
-    song = tmp_path / "song.wav"
-    write_wav(song, np.zeros(4410, np.float32), 44100)
-    with pytest.raises(NotImplementedError, match=item):
-        separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
-                             mode=mode, device="cpu", runtime_overrides=overrides)
-
-
-def test_default_mode_options_outside_the_slice_raise():
-    import numpy as np
-
-    from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
-    from audio_cut_tpu_torch.detection.pause_detector import PureVocalPauseDetector
-
-    set_runtime_config({"v2_mdd.pure_vocal_detection.enable_relative_energy_mode": False})
-    try:
-        with pytest.raises(NotImplementedError, match="legacy multi-feature detector"):
-            PureVocalPauseDetector(44100).detect_pure_vocal_pauses(
-                rms_env=np.ones(11, np.float32), env_db_grid=np.zeros(70, np.float32),
-                env_db_stride=64, n_samples=4410)
-    finally:
-        reset_runtime_config()
 
 
 @pytest.mark.parametrize("backend", ["waveunet", "onnx"])
