@@ -4,8 +4,15 @@ Counterpart of ``audio_cut_tpu/config/manager.py``. Precedence, lowest first:
 
 * the packaged ``defaults.json``: the JAX package's ``expert.yaml`` merged
   with its ``unified.yaml``, with ``gpu_pipeline.prefer_device: cuda``;
+* the YAML file named by ``$AUDIO_CUT_TPU_CONFIG`` or
+  ``$VSS_EXTERNAL_CONFIG_PATH`` (the first one set);
+* the YAML file passed as ``ConfigManager(config_path)``;
 * ``VSS__section__key`` environment variables;
 * runtime overrides (``set_runtime_config``, and each API call's own).
+
+Each file is deep-merged over the layers below it. A file that was named
+but does not exist raises ``FileNotFoundError``, and one whose root is not
+a mapping raises ``ValueError``, as in the JAX package.
 
 As in the JAX package, ``set_runtime_config`` records the dotted keys it
 sets (``get_runtime_override_keys``), so that intent logic can tell the keys a
@@ -13,11 +20,9 @@ caller set from defaults, and every change of the config bumps a generation
 counter. The API snapshots and restores ``mgr.config`` around a call; the
 recorded keys survive that restore, as in the JAX package.
 
-The defaults are JSON, so the port runs without PyYAML; an environment value
-is parsed by the YAML scalar rules the JAX package applies to it (see
-``_coerce_env_value``). External config files (``$AUDIO_CUT_TPU_CONFIG``,
-``$VSS_EXTERNAL_CONFIG_PATH``) are YAML in the JAX package and not read by
-this slice of the port; setting one raises (ROADMAP.md, queue 1).
+The port reads YAML without PyYAML: ``config/yaml_subset.py`` reads the
+subset the JAX package's config files use and raises on anything else. An
+environment value is parsed by the same rules (``_coerce_env_value``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ from __future__ import annotations
 import copy
 import json
 import os
-import re
 import threading
 from pathlib import Path
-from typing import Any, Dict, Mapping, MutableMapping, Optional
+from typing import Any, Dict, Iterable, Mapping, MutableMapping, Optional
+
+from audio_cut_tpu_torch.config import yaml_subset
 
 _ENV_PREFIX = "VSS__"
 _EXTERNAL_ENV_VARS = ("AUDIO_CUT_TPU_CONFIG", "VSS_EXTERNAL_CONFIG_PATH")
@@ -36,40 +42,25 @@ _DEFAULTS = Path(__file__).resolve().parent / "defaults.json"
 
 _MISSING = object()
 
-# YAML 1.1 scalars as PyYAML's safe_load reads them
-_YAML_TRUE = {"true", "yes", "on"}
-_YAML_FALSE = {"false", "no", "off"}
-_YAML_NULL = {"null", "~", ""}
-_INT_RE = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
-_FLOAT_RE = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+def deep_merge(base: MutableMapping[str, Any], overlay: Mapping[str, Any]) -> MutableMapping[str, Any]:
+    """Recursively merge ``overlay`` into ``base`` (in place) and return it."""
+    for key, value in overlay.items():
+        if key in base and isinstance(base[key], MutableMapping) and isinstance(value, Mapping):
+            deep_merge(base[key], value)
+        else:
+            base[key] = copy.deepcopy(value)
+    return base
 
 
 def _coerce_env_value(raw: str) -> Any:
-    """Parse an env-var override as a YAML scalar or JSON flow value.
-
-    Covers what the JAX package's ``yaml.safe_load`` gives for the values
-    its settings take: booleans (``true``/``yes``/``on`` and their opposites),
-    null, decimal ints, floats written with a dot, and JSON-compatible lists
-    and maps. Anything else stays a string.
-    """
-    text = raw.strip()
-    low = text.lower()
-    if low in _YAML_TRUE:
-        return True
-    if low in _YAML_FALSE:
-        return False
-    if low in _YAML_NULL:
-        return None
-    if _INT_RE.match(text):
-        return int(text.replace("_", ""))
-    if _FLOAT_RE.match(text) and text not in (".", "+.", "-."):
-        return float(text.replace("_", ""))
-    if text[:1] in "[{":
-        try:
-            return json.loads(text)
-        except json.JSONDecodeError:
-            return raw
-    return raw
+    """Parse an env-var override as a YAML document, as the JAX package's
+    ``yaml.safe_load`` does; a value outside the subset stays a string, as
+    one PyYAML cannot parse does there."""
+    try:
+        return yaml_subset.loads(raw)
+    except ValueError:
+        return raw
 
 
 def get_nested(mapping: Mapping[str, Any], dotted: str, default: Any = None) -> Any:
@@ -98,8 +89,9 @@ def set_nested(mapping: MutableMapping[str, Any], dotted: str, value: Any) -> No
 class ConfigManager:
     """Layered config with dotted access and tracked runtime overrides."""
 
-    def __init__(self) -> None:
+    def __init__(self, config_path: Optional[str] = None) -> None:
         self._lock = threading.RLock()
+        self._explicit_path = config_path
         self._runtime_keys: set[str] = set()
         self.config: Dict[str, Any] = {}
         self._generation = 0
@@ -107,20 +99,37 @@ class ConfigManager:
 
     def reload(self) -> None:
         with self._lock:
-            for var in _EXTERNAL_ENV_VARS:
-                if os.environ.get(var):
-                    raise NotImplementedError(
-                        f"${var} names a YAML config file; the PyTorch port reads its "
-                        "packaged defaults.json and VSS__ variables only so far "
-                        "(ROADMAP.md, queue 1, 'the other modes': config files)")
-            with _DEFAULTS.open("r", encoding="utf-8") as fh:
-                cfg: Dict[str, Any] = json.load(fh)
+            cfg: Dict[str, Any] = {}
+            for layer in self._layers():
+                deep_merge(cfg, layer)
             self._apply_env_overrides(cfg)
             self._validate(cfg)
             self.config = cfg
             self._baseline = copy.deepcopy(cfg)
             self._runtime_keys = set()
             self._generation += 1
+
+    def _layers(self) -> Iterable[Mapping[str, Any]]:
+        with _DEFAULTS.open("r", encoding="utf-8") as fh:
+            yield json.load(fh)
+        for var in _EXTERNAL_ENV_VARS:
+            path = os.environ.get(var)
+            if path:
+                yield self._load_yaml(Path(path))
+                break
+        if self._explicit_path:
+            yield self._load_yaml(Path(self._explicit_path))
+
+    @staticmethod
+    def _load_yaml(path: Path) -> Mapping[str, Any]:
+        if not path.exists():
+            raise FileNotFoundError(f"config file not found: {path}")
+        data = yaml_subset.load_file(path)
+        if data is None:
+            return {}
+        if not isinstance(data, Mapping):
+            raise ValueError(f"config root must be a mapping: {path}")
+        return data
 
     @staticmethod
     def _apply_env_overrides(cfg: MutableMapping[str, Any]) -> None:

@@ -1,18 +1,22 @@
 """Audio load/save/resample helpers (host side).
 
 Counterpart of ``audio_cut_tpu/io/audio.py``: WAV decode through the port's
-own codec, mono mix, polyphase resampling with ``scipy.signal.resample_poly``
-in float32, as the JAX package does, and the 16 kHz PCM_16 copy an ASR
-worker reads, made from a stem on its device (``write_asr_copy_from_device``).
-The JAX package's host copy (``write_asr_copy``) is its fallback when the
-device copy fails; the port has no such fallback, so it has no host copy.
-The ffmpeg decode of compressed formats is not part of the port yet
-(ROADMAP.md, queue 1).
+own codec; mp3, flac, m4a, mp4, ogg, opus, aac and wma through an ``ffmpeg``
+subprocess (``ffprobe`` for the rate and channels), with the JAX package's
+command lines and errors; mono mix, polyphase resampling with
+``scipy.signal.resample_poly`` in float32, as the JAX package does, and the
+16 kHz PCM_16 copy an ASR worker reads, made from a stem on its device
+(``write_asr_copy_from_device``). The JAX package's host copy
+(``write_asr_copy``) is its fallback when the device copy fails; the port has
+no such fallback, so it has no host copy.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import shutil
+import subprocess
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
@@ -23,6 +27,47 @@ from audio_cut_tpu_torch.exceptions import AudioIOError
 from audio_cut_tpu_torch.io.wavio import read_wav, write_wav, write_wav_payload
 
 _SUPPORTED_EXTS = {".wav", ".wave"}
+_FFMPEG_EXTS = {".mp3", ".flac", ".m4a", ".mp4", ".ogg", ".opus", ".aac", ".wma"}
+_UNSUPPORTED_HINT = (
+    "cannot decode {src}: no ffmpeg on PATH and no {ext} decoder is bundled; "
+    "install ffmpeg or convert with `ffmpeg -i {src} -acodec pcm_s24le out.wav` first"
+)
+
+
+def ffmpeg_available() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def _decode_via_ffmpeg(path: Path) -> Tuple[np.ndarray, int]:
+    """Decode a compressed file to float32 through ``ffmpeg`` on PATH:
+    ``ffprobe`` gives the first audio stream's rate and channels (44.1 kHz
+    stereo when it fails), ``ffmpeg`` the interleaved raw samples."""
+    probe = subprocess.run(
+        ["ffprobe", "-v", "error", "-select_streams", "a:0",
+         "-show_entries", "stream=sample_rate,channels", "-of", "json", str(path)],
+        capture_output=True,
+    )
+    sr, channels = 44100, 2
+    if probe.returncode == 0:
+        try:
+            info = json.loads(probe.stdout)["streams"][0]
+            sr = int(info.get("sample_rate", sr))
+            channels = int(info.get("channels", channels))
+        except (KeyError, IndexError, ValueError, json.JSONDecodeError):
+            pass
+    proc = subprocess.run(
+        ["ffmpeg", "-v", "error", "-i", str(path),
+         "-f", "f32le", "-acodec", "pcm_f32le", "-"],
+        capture_output=True,
+    )
+    if proc.returncode != 0:
+        raise AudioIOError(
+            f"ffmpeg failed to decode {path.name}: {proc.stderr.decode(errors='replace')[:300]}"
+        )
+    flat = np.frombuffer(proc.stdout, dtype="<f4")
+    if channels > 1:
+        flat = flat[: (flat.size // channels) * channels].reshape(-1, channels)
+    return flat.astype(np.float32), sr
 
 
 def to_mono(audio: np.ndarray) -> np.ndarray:
@@ -47,17 +92,22 @@ def load_audio(
     mono: bool = True,
     normalize: bool = False,
 ) -> Tuple[np.ndarray, int]:
-    """Load a WAV file as float32, optionally mono/resampled/normalized."""
+    """Load an audio file as float32, optionally mono/resampled/normalized."""
     p = Path(path)
     if not p.exists():
         raise AudioIOError(f"audio file not found: {p}")
     ext = p.suffix.lower()
-    if ext not in _SUPPORTED_EXTS:
+    if ext in _SUPPORTED_EXTS:
+        audio, sr = read_wav(p)
+    elif ext in _FFMPEG_EXTS:
+        if not ffmpeg_available():
+            raise AudioIOError(_UNSUPPORTED_HINT.format(src=p.name, ext=ext))
+        audio, sr = _decode_via_ffmpeg(p)
+    else:
         raise AudioIOError(
-            f"unsupported audio format {ext!r} for {p.name}: the PyTorch port "
-            "reads WAV only so far (ffmpeg decode: ROADMAP.md, queue 1)"
+            f"unsupported audio format {ext!r} for {p.name}; "
+            f"supported: wav natively, {sorted(_FFMPEG_EXTS)} via ffmpeg"
         )
-    audio, sr = read_wav(p)
     if mono:
         audio = to_mono(audio)
     if target_sr is not None and target_sr != sr:

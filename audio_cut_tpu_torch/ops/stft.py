@@ -14,6 +14,7 @@ version for a CPU tensor.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -79,6 +80,15 @@ def _ola_window_sq(n: int, n_fft: int, hop: int) -> np.ndarray:
     return np.maximum(wsq, 1e-10).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _ola_norm(n: int, n_fft: int, hop: int, device: str) -> torch.Tensor:
+    """``_ola_window_sq`` on ``device``, made and copied once per shape: a
+    copy from pageable host memory on every call would also wait for the
+    device to drain. Made outside inference mode, so autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_ola_window_sq(n, n_fft, hop)).to(device)
+
+
 def istft(
     spec: torch.Tensor,
     n_fft: int,
@@ -100,7 +110,7 @@ def istft(
     lead = frames.shape[:-2]
     out = windowed_ola(frames.reshape((-1,) + frames.shape[-2:]).contiguous(), window, hop)
     out = out.reshape(lead + out.shape[-1:])
-    out = out / torch.from_numpy(_ola_window_sq(n, n_fft, hop)).to(out.device)
+    out = out / _ola_norm(n, n_fft, hop, str(out.device))
 
     if center:
         pad = n_fft // 2

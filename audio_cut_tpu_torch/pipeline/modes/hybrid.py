@@ -91,7 +91,7 @@ def process_hybrid_mdd(
     if sep is None:  # a miss: the pass again; the bundle without the VAD
         sep, bundle = fused.separate_and_detect_fused(
             splitter.separator, None, audio, guard_win_ms=float(eqc.get("win_ms", 80)),
-            pipeline_mode="device_ola")
+            staged=True)
     features = bundle.features
 
     # 3. beat analysis and the strategy's cuts

@@ -17,7 +17,8 @@ merge, the sample-exact split and the export.
 path. There it is a separate program with a retry, a rebuild from host
 arrays and a CPU run; in the port it is the same pass (separation, then
 ``analysis/bundle.build_detection_bundle`` over the device stems) under the
-manifest label ``device_ola``, so both give the same bundle bit for bit. A
+engine's manifest label (``device_ola_pipelined_p<P>`` or ``device_ola``),
+so both give the same bundle bit for bit. A
 failed bundle raises, so the bundle is never None and the JAX package's
 host-waveform fallbacks have no caller. When an enclosing ``hybrid_mdd`` run asks for it,
 the pass (audio, stems, bundle) is stashed on the splitter for that run.
@@ -116,7 +117,7 @@ def process_pure_vocal_split(
         splitter.separator, vad_model, audio,
         guard_win_ms=float(eqc.get("win_ms", 80)),
         refine_win_ms=float(lbr.get("window_ms", 5)),
-        pipeline_mode="device_ola" if staged else "fused_single_program",
+        staged=staged,
     )
     # before the host tail: the vpbd modes set runtime overrides there, which
     # bump the config generation that the memo's key holds

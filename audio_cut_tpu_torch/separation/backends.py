@@ -87,6 +87,16 @@ class SpectralMaskBackend:
         self._band = torch.from_numpy(np.clip(
             np.minimum((freqs - lo) / max(core_lo - lo, 1.0), (hi - freqs) / max(hi - core_hi, 1.0)),
             0.0, 1.0).astype(np.float32))
+        self._band_by_device: Dict[str, torch.Tensor] = {}
+
+    def _band_on(self, device: torch.device) -> torch.Tensor:
+        """The band weight on ``device``, copied there once: a copy from
+        pageable host memory in every group would wait for the device."""
+        key = str(device)
+        if key not in self._band_by_device:
+            with torch.inference_mode(False):
+                self._band_by_device[key] = self._band.to(device)
+        return self._band_by_device[key]
 
     def _separate(self, audio: torch.Tensor, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
         spec = stft(audio, n_fft=self.n_fft, hop=self.hop)        # [T, F]
@@ -99,7 +109,7 @@ class SpectralMaskBackend:
         h_mask = hp / total
         # vocals: harmonically sustained energy inside the vocal band that is
         # NOT flat across frequency (percussive): band-weighted Wiener
-        v_mask = h_mask * self._band.to(audio.device)[None, :]
+        v_mask = h_mask * self._band_on(audio.device)[None, :]
         vocal = istft(spec * v_mask, n_fft=self.n_fft, hop=self.hop, length=length)
         return vocal, audio[..., :length] - vocal
 

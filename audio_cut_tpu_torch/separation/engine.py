@@ -20,13 +20,27 @@ has no stems (``backend_used="none"``). That would hide the model. Here a
 backend that fails to load or run raises, whatever those two keys say, and
 no code path builds the spectral backend as a substitute.
 
-Not in this slice (ROADMAP.md, queue 1): the pipelined piece upload, which
-gives the same stems and overlaps the upload with compute; the host-chunked
-path of backends without a batched window forward.
+With ``device_pipeline.pipelined_upload`` on (the default) and more than
+two windows, the schedule is cut into pieces of ``piece_windows``
+consecutive windows (at most ``max_pieces`` pieces), as in the JAX package's
+``_piece_layout``. The int16 track is written once into a pinned host buffer
+cached with the layout; each piece's new samples go to the device on a side
+copy stream, and the compute stream waits for that copy before it runs the
+piece's windows, so the upload of piece k+1 overlaps the forward of piece k.
+The windows are added in plan order, as on the whole-track path, so the mix
+is equal bit for bit and the stems differ only by the backend's batch
+(``tests/test_torch_pipelined.py``). The layouts, and the whole-track plan,
+live in a module cache that outlives the engine, keyed by a per-instance
+backend token and the full geometry.
+
+Not in this slice (ROADMAP.md, queue 1): the host-chunked path of backends
+without a batched window forward.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -35,6 +49,59 @@ import numpy as np
 import torch
 
 from audio_cut_tpu_torch.config import get_config
+
+# OLA layouts (device weight rows, inv_wsum, the pinned staging buffer) keyed
+# by backend token and geometry; they outlive the engine, which the API builds
+# anew for each call. Tokens are per backend instance, so a process that builds
+# many backends would grow this forever: LRU-bounded, as in the JAX package.
+_OLA_CACHE: Dict[Any, Any] = {}
+_OLA_CACHE_MAX = 64
+_OLA_CACHE_LOCK = threading.Lock()
+
+
+def _ola_cache_get(key):
+    with _OLA_CACHE_LOCK:
+        if key in _OLA_CACHE:
+            val = _OLA_CACHE.pop(key)
+            _OLA_CACHE[key] = val  # re-insert: dict order == LRU order
+            return True, val
+    return False, None
+
+
+def _ola_cache_put(key, val):
+    with _OLA_CACHE_LOCK:
+        _OLA_CACHE.pop(key, None)
+        _OLA_CACHE[key] = val
+        while len(_OLA_CACHE) > _OLA_CACHE_MAX:
+            _OLA_CACHE.pop(next(iter(_OLA_CACHE)))
+    return val
+
+
+_CACHE_TOKENS = itertools.count(1)
+
+
+def backend_cache_token(backend) -> int:
+    """Monotonic per-instance cache key. ``id(backend)`` is unsafe: a backend
+    can be collected and a new one, with other weights or geometry, allocated
+    at the recycled address would hit the old one's cached layout."""
+    tok = backend.__dict__.get("_cache_token")
+    if tok is None:
+        tok = next(_CACHE_TOKENS)
+        backend.__dict__["_cache_token"] = tok
+    return tok
+
+
+_COPY_STREAMS: Dict[str, Any] = {}
+
+
+def _copy_stream(device: torch.device):
+    """The side stream that carries the uploads to ``device``, one per card."""
+    key = str(device)
+    stream = _COPY_STREAMS.get(key)
+    if stream is None:
+        stream = _COPY_STREAMS.setdefault(key, torch.cuda.Stream(device))
+    return stream
+
 
 # track-length padding bucket for the whole-track OLA program (see the JAX
 # package: it bounds the number of distinct compiled lengths there; the port
@@ -296,49 +363,182 @@ class SeparationEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _layout_key(self, kind: str, padded_len: int, *extra) -> Tuple:
+        """The full geometry, the backend instance and the device: a key of
+        shapes alone reused a stale combine in the JAX package (0.62 L_inf)."""
+        return (kind, self._backend_name, backend_cache_token(self.backend), str(self.device),
+                self.sample_rate, padded_len, *self._geometry(), *extra)
+
+    def _build_layout(self, padded_len: int, per: Optional[int]) -> Dict[str, Any]:
+        """The OLA plan cut into pieces of ``per`` consecutive windows (None:
+        one piece of all of them): their start groups, spans, device weight
+        rows and window offsets within the span, and the samples each piece
+        owns, those that no earlier span holds (a partition of the track,
+        uploaded once)."""
+        plans, window, weights, inv_wsum = ola_plan(
+            padded_len, self.sample_rate, *self._geometry())
+        starts = [p.start for p in plans]
+        per = per or len(starts)
+        groups = [starts[k:k + per] for k in range(0, len(starts), per)]
+        spans = [(g[0], g[-1] + window) for g in groups]
+        owned = [(spans[k - 1][1] if k else 0, e) for k, (_s, e) in enumerate(spans)]
+        if owned[-1][1] != padded_len:
+            raise ValueError(f"OLA plan ends at {owned[-1][1]}, not the padded length {padded_len}")
+        rows, offsets, base = [], [], 0
+        for g, (s, _e) in zip(groups, spans):
+            rows.append(torch.from_numpy(weights[base:base + len(g)]).to(self.device))
+            offsets.append([st - s for st in g])
+            base += len(g)
+        return {
+            "per": per,
+            "window": window,
+            "n_chunks": len(plans),
+            "groups": groups,
+            "spans": spans,
+            "span_len": max(e - s for s, e in spans),
+            "kmax": max(len(g) for g in groups),
+            "weights": rows,
+            "offsets": offsets,
+            "owned": owned,
+            "inv_wsum": torch.from_numpy(inv_wsum).to(self.device),
+            "padded_len": padded_len,
+            # pinned host buffers of the upload, by dtype; the lock keeps one
+            # call's copies out of the buffer until the previous call's fence
+            "staging": {},
+            "lock": threading.Lock(),
+        }
+
+    def _piece_layout(self, padded_len: int) -> Optional[Dict[str, Any]]:
+        """The pipelined layout (cached), as the JAX package's
+        ``_piece_layout``: None when ``device_pipeline.pipelined_upload`` is
+        off or the schedule has at most 2 windows; else pieces of
+        ``max(piece_windows, ceil(windows / max_pieces))`` windows."""
+        if not bool(get_config("device_pipeline.pipelined_upload", True)):
+            return None
+        per = max(1, int(get_config("device_pipeline.piece_windows", 2)))
+        max_pieces = max(2, int(get_config("device_pipeline.max_pieces", 8)))
+        key = self._layout_key("piece_layout", padded_len, per, max_pieces)
+        hit, layout = _ola_cache_get(key)
+        if hit:
+            return layout
+        plans, _ = chunk_schedule(padded_len, self.sample_rate, *self._geometry())
+        if len(plans) <= 2:
+            return _ola_cache_put(key, None)
+        # each piece is a copy and a forward: cap the count, so that small
+        # native windows do not shatter the schedule into tiny pieces
+        per = max(per, -(-len(plans) // max_pieces))
+        return _ola_cache_put(key, self._build_layout(padded_len, per))
+
+    def _whole_layout(self, padded_len: int) -> Dict[str, Any]:
+        """The whole-track plan (cached): one piece holding every window."""
+        key = self._layout_key("ola_plan", padded_len)
+        hit, layout = _ola_cache_get(key)
+        if hit:
+            return layout
+        return _ola_cache_put(key, self._build_layout(padded_len, None))
+
+    def _stage(self, layout: Dict[str, Any], raw: np.ndarray):
+        """On the card: ``raw`` into the layout's pinned buffer (allocated
+        once), and the device buffer the pieces' copies fill. Returns
+        (pinned buffer, device buffer, side stream). The device buffer is
+        allocated on the compute stream, which reads it only after waiting
+        for each copy, so its memory is not reused while a copy may still
+        write it; the side stream first waits for the compute stream, whose
+        queued work may still read that memory from an earlier tensor."""
+        staging = layout["staging"].get(raw.dtype.str)
+        if staging is None:
+            staging = torch.empty(raw.shape, dtype=torch.from_numpy(raw[:0]).dtype,
+                                  pin_memory=True)
+            layout["staging"][raw.dtype.str] = staging
+        staging.numpy()[:] = raw
+        dev_raw = torch.empty(staging.shape, dtype=staging.dtype, device=self.device)
+        side = _copy_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        return staging, dev_raw, side
+
+    @staticmethod
+    def _copy(staging: torch.Tensor, dev_raw: torch.Tensor, side, a: int, b: int):
+        """Samples [a, b) to the device on the side stream; returns the
+        event the compute stream waits for."""
+        with torch.cuda.stream(side):
+            dev_raw[a:b].copy_(staging[a:b], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return done
+
+    def _run_layout(self, layout: Dict[str, Any], raw: np.ndarray, scale) -> Tuple[torch.Tensor, ...]:
+        """Every piece in order: wait for its copy, dequantize its owned
+        samples into the mix, slice its windows at the cached offsets, one
+        backend call, weight them, and add them into the stems in plan order
+        (the JAX package's association). On the card the copy of piece k+1
+        is queued before piece k's work, so it streams while that piece
+        computes. Returns (vocal, inst, mix) of the padded length. On the
+        CPU the same steps run on ``raw`` itself."""
+        dev = self.device
+        owned = layout["owned"]
+        if dev.type == "cuda":
+            staging, dev_raw, side = self._stage(layout, raw)
+            ready = [self._copy(staging, dev_raw, side, *owned[0])]
+        else:
+            dev_raw, ready = torch.from_numpy(raw), None
+        padded_len, window = layout["padded_len"], layout["window"]
+        scale = float(scale)  # a float32 value: the product rounds as x * float32(scale)
+        mix = torch.empty(padded_len, dtype=torch.float32, device=dev)
+        vocal = torch.zeros(padded_len, dtype=torch.float32, device=dev)
+        inst = torch.zeros(padded_len, dtype=torch.float32, device=dev)
+        pieces = zip(layout["groups"], layout["spans"], owned, layout["offsets"], layout["weights"])
+        for k, (group, (s, e), (a, b), offsets, w) in enumerate(pieces):
+            if ready is not None:
+                if k + 1 < len(owned):
+                    ready.append(self._copy(staging, dev_raw, side, *owned[k + 1]))
+                torch.cuda.current_stream(dev).wait_event(ready[k])
+            torch.mul(dev_raw[a:b], scale, out=mix[a:b])
+            span = mix[s:e]
+            v, i = self.backend.separate_windows(torch.stack([span[o:o + window] for o in offsets]))
+            wv, wi = v * w, i * w
+            for j, start in enumerate(group):
+                vocal[start:start + window] += wv[j]
+                inst[start:start + window] += wi[j]
+        norm = layout["inv_wsum"]
+        return vocal * norm, inst * norm, mix
+
     @torch.inference_mode()
     def separate_on_device(self, audio: np.ndarray):
         """Returns (vocal_dev, inst_dev, mix_dev, meta): device stems of
-        len(audio), and the bucket-padded dequantized mix."""
+        len(audio), and the bucket-padded dequantized mix. The manifest's
+        label is ``device_ola_pipelined_p<pieces>`` on the pipelined layout,
+        else ``device_ola``."""
         audio = np.asarray(audio, dtype=np.float32)
         n = audio.shape[-1]
-        chunk_s, overlap_s, halo_s, align = self._geometry()
-        padded_len = padded_track_len(n, self.sample_rate, align)
-        plans, window, weights, inv_wsum = ola_plan(
-            padded_len, self.sample_rate, chunk_s, overlap_s, halo_s, align)
+        padded_len = padded_track_len(n, self.sample_rate, self._geometry()[3])
 
         t0 = time.time()
         padded = np.pad(audio, (0, padded_len - n)) if padded_len != n else audio
-        dev = self.device
         if bool(get_config("device_pipeline.upload_int16", True)):
             # half the upload bytes at -90 dB quantization; the host keeps the
             # exact input for splicing and the complement instrumental
             raw, scale = quantize_upload(padded)
-            mix = torch.from_numpy(raw).to(dev).to(torch.float32) * torch.tensor(scale, device=dev)
         else:
-            mix = torch.from_numpy(padded).to(dev)
-        windows = torch.stack([mix[p.start:p.start + window] for p in plans])
-        v, i = self.backend.separate_windows(windows)
-        w = torch.from_numpy(weights).to(dev)
-        wv, wi = v * w, i * w
-        vocal = torch.zeros(padded_len, dtype=torch.float32, device=dev)
-        inst = torch.zeros(padded_len, dtype=torch.float32, device=dev)
-        for k, p in enumerate(plans):  # in order: the JAX package's association
-            vocal[p.start:p.start + window] += wv[k]
-            inst[p.start:p.start + window] += wi[k]
-        norm = torch.from_numpy(inv_wsum).to(dev)
-        vocal, inst = vocal * norm, inst * norm
-        # fence before timing: kernels run asynchronously
-        self._synchronize()
+            raw, scale = padded, np.float32(1.0)
+        layout = self._piece_layout(padded_len)
+        if layout is None:
+            mode, layout = "device_ola", self._whole_layout(padded_len)
+        else:
+            mode = f"device_ola_pipelined_p{len(layout['spans'])}"
+        with layout["lock"]:
+            vocal, inst, mix = self._run_layout(layout, raw, scale)
+            # fence before timing (kernels run asynchronously), and before the
+            # next call may refill the pinned buffer
+            self._synchronize()
         elapsed_ms = round((time.time() - t0) * 1000.0, 3)
         meta = {
             "gpu_pipeline_backend": self._backend_name,
-            "gpu_pipeline_chunks": len(plans),
+            "gpu_pipeline_chunks": layout["n_chunks"],
             "gpu_pipeline_window_samples": padded_len,
             "gpu_pipeline_compute_ms": elapsed_ms,
             "gpu_pipeline_total_ms": elapsed_ms,
             "gpu_pipeline_device": vocal.device.type,
-            "gpu_pipeline_mode": "device_ola",
+            "gpu_pipeline_mode": mode,
         }
         return vocal[:n], inst[:n], mix, meta
 

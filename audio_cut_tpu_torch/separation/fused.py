@@ -3,14 +3,21 @@ the stems on the device, then ONE host copy.
 
 Counterpart of ``audio_cut_tpu/separation/fused.py``. The JAX package traces
 the engine's OLA graph and the bundle into one jitted program; here the
-engine's whole-track OLA (``SeparationEngine.separate_on_device``) and the
-bundle (``analysis/bundle._bundle_fn``) run one after the other on the same
-device, and the only device-to-host copy is the bundle's flat tensor. The
-stems stay on the device; their host copies are lazy.
+engine's OLA (``SeparationEngine.separate_on_device``, whole-track or in
+pipelined pieces) and the bundle (``analysis/bundle._bundle_fn``) run one
+after the other on the same device, and the only device-to-host copy is the
+bundle's flat tensor. The stems stay on the device; their host copies are
+lazy.
 
 The bundle sees what the JAX program sees: the dequantized int16 upload of
 the mix, padded to ``padded_track_len``, and the vocal stem with exact zeros
 past the true length (the OLA leaks a little energy past the track end).
+
+The manifest's label comes from the layout that ran: ``fused_pipelined_p<P>``
+for P pieces, else ``fused_single_program``. The JAX package's staged path
+and hybrid_mdd's memo miss call ``separate_for_detection`` there, and report
+the engine's ``device_ola_pipelined_p<P>`` or ``device_ola``; in the port
+they run this same pass with ``staged=True``, which keeps the engine's label.
 """
 
 from __future__ import annotations
@@ -28,13 +35,12 @@ def separate_and_detect_fused(
     *,
     guard_win_ms: float = 80.0,
     refine_win_ms: float = 5.0,
-    pipeline_mode: str = "fused_single_program",
+    staged: bool = False,
 ):
     """Returns (SeparationResult, DetectionBundle). ``vad_model`` is a
     ``ConvVAD`` or None (energy gate: no VAD probabilities in the bundle).
-    ``pipeline_mode`` is the manifest's label: the JAX package's staged path
-    and hybrid_mdd's second pass report ``device_ola``, and run this same
-    pass in the port."""
+    ``staged`` keeps the engine's label (the staged path, hybrid's memo
+    miss) instead of the fused pass's."""
     from audio_cut_tpu_torch.analysis.bundle import build_detection_bundle
     from audio_cut_tpu_torch.separation.engine import SeparationResult
 
@@ -51,10 +57,14 @@ def separate_and_detect_fused(
     total_ms = round((time.time() - t0) * 1000.0, 3)
 
     meta = dict(meta)
+    label = meta["gpu_pipeline_mode"]  # device_ola[_pipelined_p<P>]
+    if not staged:
+        label = ("fused_single_program" if label == "device_ola"
+                 else label.replace("device_ola", "fused", 1))
     meta.update({
         "gpu_pipeline_compute_ms": total_ms,
         "gpu_pipeline_total_ms": total_ms,
-        "gpu_pipeline_mode": pipeline_mode,
+        "gpu_pipeline_mode": label,
     })
     result = SeparationResult(
         vocal_track=None,

@@ -357,3 +357,41 @@ def test_yin_lpc_and_track_features_on_the_card_match_the_cpu(cuda):
             [:card.n_frames] for d in (cuda, "cpu")]
     err = np.abs(card.onset.astype(np.float64) - cpu.onset)
     assert np.all(err <= onset_allowed(*mags) + 2e-4 * np.abs(cpu.onset) + 2e-5)
+
+
+def test_pipelined_pieces_on_the_card_match_the_whole_track(cuda):
+    """The pipelined piece upload on the card, with the packaged tiny ConvTDF
+    on a 15 s song (11 windows, 6 pieces): one K1 launch a piece against one
+    a group of 4 on the whole-track path, the mix bit for bit, the stems
+    within the CPU test's bound (``tests/test_torch_pipelined.py``), and the
+    upload's host buffer pinned."""
+    from conftest import make_song
+
+    from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
+    from audio_cut_tpu_torch.ops.ola import K1
+    from audio_cut_tpu_torch.separation import engine as E
+
+    audio, sr = make_song(15.0)
+    out = {}
+    try:
+        for pipelined in (True, False):
+            set_runtime_config({"enhanced_separation.backend": "convtdf",
+                                "enhanced_separation.convtdf.checkpoint": "packaged_tiny",
+                                "device_pipeline.pipelined_upload": pipelined})
+            k1 = K1.launches
+            out[pipelined] = E.SeparationEngine(sr, cuda).separate_on_device(audio) + (
+                K1.launches - k1,)
+            reset_runtime_config()
+    finally:
+        reset_runtime_config()
+    (v_p, i_p, mix_p, meta_p, k1_p), (v_m, i_m, mix_m, meta_m, k1_m) = out[True], out[False]
+    assert (meta_p["gpu_pipeline_mode"], k1_p) == ("device_ola_pipelined_p6", 6)
+    assert (meta_m["gpu_pipeline_mode"], k1_m) == ("device_ola", 3)
+    assert torch.equal(mix_p, mix_m)
+    for got, want, snr_min in ((v_p, v_m, 40.0), (i_p, i_m, 30.0)):
+        diff = (got.double() - want.double())
+        assert float(diff.abs().max()) <= 1e-2
+        if diff.abs().max() > 0:
+            assert 10 * np.log10(float((want.double() ** 2).sum() / (diff ** 2).sum())) >= snr_min
+    staging = [t for layout in E._OLA_CACHE.values() if layout for t in layout["staging"].values()]
+    assert staging and all(t.is_pinned() for t in staging)

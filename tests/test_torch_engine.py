@@ -57,7 +57,9 @@ def test_chunk_schedule_and_ola_plan_equal_jax(n):
 
 def test_convtdf_large_geometry_gives_three_groups_for_a_minute():
     """The sizing the chip check relies on: 60 s pads to 11 model windows,
-    which map_group 4 runs as 3 forwards (3 launches of K1)."""
+    which map_group 4 runs as 3 forwards (3 launches of K1) with the piece
+    upload off; by default they run as 6 pieces of at most 2 windows (6
+    launches, ``test_torch_pipelined.py``)."""
     from audio_cut_tpu_torch.separation.tiling import stft_engine_geometry
 
     g = stft_engine_geometry(SR, 255 * 1024, 6144, 1024)

@@ -193,8 +193,9 @@ def test_hybrid_runs_one_device_pass_per_track(short_song, tmp_path, monkeypatch
                              runtime_overrides={**TINY, "device_pipeline.fused_program": fused_program})
     assert m["success"]
     assert calls == {"pass": 1, "separation": 1}
-    assert m["gpu"]["gpu_pipeline_mode"] == ("fused_single_program" if fused_program
-                                             else "device_ola")
+    # the default config cuts the 15 s song's 11 windows into 6 pieces
+    assert m["gpu"]["gpu_pipeline_mode"] == ("fused_pipelined_p6" if fused_program
+                                             else "device_ola_pipelined_p6")
 
 
 def _count_passes(monkeypatch, fused, engine_cls):

@@ -3,9 +3,10 @@ both packages on the same synthetic song, with the packaged tiny ConvTDF in
 bfloat16 as in production; the port runs on device="cpu".
 
 Both runs pin the backend to convtdf (tests/conftest.py pins the JAX package
-to spectral through the environment) and turn the JAX package's pipelined
-piece upload off: it computes the same stems as the whole-track device OLA
-the port runs, and would only change the manifest's gpu_pipeline_mode.
+to spectral through the environment) and keep the default config otherwise:
+both packages cut the 15 s bucket's 11 windows into 6 pipelined pieces, so
+the manifests carry the same gpu_pipeline_mode (``device_ola_pipelined_p6``
+for vocal_separation, ``fused_pipelined_p6`` for v2.2_mdd).
 
 Bounds: bfloat16 rounds at other places in XLA and in PyTorch, so the vocal
 stems agree to an SNR of 30 dB or more, and the confidence, an energy ratio
@@ -26,7 +27,6 @@ from conftest import make_song  # noqa: E402
 OVERRIDES = {
     "enhanced_separation.backend": "convtdf",
     "enhanced_separation.convtdf.checkpoint": "packaged_tiny",
-    "device_pipeline.pipelined_upload": False,
 }
 
 
@@ -71,7 +71,7 @@ def test_same_manifest_but_timings_and_paths(runs):
 
     assert scrub(mt) == scrub(mj)
     assert mt["gpu"]["gpu_pipeline_device"] == "cpu"
-    assert mt["gpu"]["gpu_pipeline_mode"] == "device_ola"
+    assert mt["gpu"]["gpu_pipeline_mode"] == "device_ola_pipelined_p6"
     assert abs(mt["separation"]["confidence"] - mj["separation"]["confidence"]) <= 1e-3
 
 
@@ -138,7 +138,7 @@ def test_mdd_same_segments_and_labels(mdd_runs):
     _, _, mj, mt = mdd_runs
     assert mj["success"] and mt["success"]
     assert mt["version"] == mj["version"] == "v2.2_mdd"
-    assert mt["gpu"]["gpu_pipeline_mode"] == mj["gpu"]["gpu_pipeline_mode"]
+    assert mt["gpu"]["gpu_pipeline_mode"] == mj["gpu"]["gpu_pipeline_mode"] == "fused_pipelined_p6"
     assert len(mt["segments"]) == len(mj["segments"]) >= 2
     assert [s["label"] for s in mt["segments"]] == [s["label"] for s in mj["segments"]]
 

@@ -5,10 +5,10 @@ mask; the engine runs it on the config schedule (10 s windows, 2.5 s
 overlap, 0.5 s halo, align 4096), groups of 4 windows, one K1 launch per
 group on the card (the plain OLA here, on the CPU).
 
-Every end-to-end run turns the JAX package's pipelined piece upload off, as
-``test_torch_slice.py`` does: it gives the same stems as the whole-track
-device OLA the port runs and would change only the manifest's
-``gpu_pipeline_mode``.
+Every end-to-end run turns the pipelined piece upload off in both
+packages, so that these tests hold the whole-track path;
+``test_torch_pipelined.py`` holds the pieces to it, and
+``test_torch_slice.py`` compares the manifests with the pieces on.
 
 Bounds: both packages compute in float32 with two libraries' FFTs, and the
 medians are exact selections of nearly equal inputs, so a window's vocal

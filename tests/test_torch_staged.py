@@ -6,7 +6,9 @@
    separates the track again and builds its bundle through the same
    function. Bound: none. The bundles that reach the host tail are equal
    bit for bit, and the manifests are equal apart from timings, paths and
-   ``gpu_pipeline_mode`` (``device_ola`` against ``fused_single_program``).
+   ``gpu_pipeline_mode`` (``device_ola_pipelined_p6`` against
+   ``fused_pipelined_p6``: the default config cuts the 11 windows into 6
+   pieces on both paths).
    For ``v2.2_mdd`` and ``vpbd_acoustic``.
 2. The port's staged path against the JAX package's. The JAX package's
    ``separate_for_detection`` and the port's ``separate_on_device`` return
@@ -98,8 +100,8 @@ def test_staged_manifest_equals_fused_but_the_mode(port_runs):
     mf, ms = out["fused"][0], out["staged"][0]
     assert mf["success"] and ms["success"] and ms["version"] == mode
     assert len(ms["segments"]) >= 2
-    assert mf["gpu"]["gpu_pipeline_mode"] == "fused_single_program"
-    assert ms["gpu"]["gpu_pipeline_mode"] == "device_ola"
+    assert mf["gpu"]["gpu_pipeline_mode"] == "fused_pipelined_p6"
+    assert ms["gpu"]["gpu_pipeline_mode"] == "device_ola_pipelined_p6"
     timed = TIMED + ("gpu_pipeline_mode",)
     assert _scrub(ms, timed) == _scrub(mf, timed)
 
@@ -163,7 +165,7 @@ def jax_pair_runs(tmp_path_factory):
             assert len(audio) == n
             calls["torch"].append("separate_on_device")
             return (torch.from_numpy(pair.vocal), None, torch.from_numpy(pair.mix),
-                    dict(STAGED_META, gpu_pipeline_mode="fused_single_program"))
+                    dict(STAGED_META))
 
         mp.setattr(TorchEngine, "separate_on_device", torch_separate_on_device)
         mp.setattr(TB, "build_detection_bundle", fake_bundle("torch", TB, pair.shapes, pair.torch_vad))

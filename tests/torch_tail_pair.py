@@ -107,10 +107,10 @@ def patch_fused(mp, pair: TailPair) -> None:
 
     def fake(result_cls, bundle_mod, shapes, vad):
         def separate_and_detect_fused(engine, vad_model, audio, *, guard_win_ms, refine_win_ms,
-                                      pipeline_mode="fused_single_program"):
+                                      staged=False):
             assert vad_model is vad and len(audio) == n
             assert (guard_win_ms, refine_win_ms) == (80.0, 5.0)
-            assert pipeline_mode == "fused_single_program"
+            assert not staged
             sep = result_cls(vocal_track=pair.vocal.copy(), instrumental_track=None,
                              backend_used="convtdf", separation_confidence=None,
                              device_meta=dict(FAKE_META))
