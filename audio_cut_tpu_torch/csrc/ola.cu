@@ -12,17 +12,37 @@
 //
 // Bound: memory. Each frame sample is read once, each output sample written
 // once, with r multiply-adds per output sample (r = 6 on the serving path):
-// about 0.2 operations per byte, far below the card's balance point. At the
-// serving shape [4, 256, 6144], hop 1024, one launch moves 25.2 MB in and
-// 4.3 MB out.
+// about 0.2 operations per byte, far below the card's balance point. At a
+// piece of the serving path, [2, 256, 6144] hop 1024, one launch moves 12.6
+// MB in and 2.1 MB out: 4.4 us at 3.35 TB/s.
 //
-// Design: one block per (output hop-tile j, batch b); its threads walk u.
-// For a fixed (j, m) the threads read frames[b, j-m, m*hop .. m*hop+hop)
-// as one contiguous run, so loads coalesce; each output sample is summed in
-// a register and written once, so no atomics and no second pass. The frame
-// rows outside [0, N) at the two ragged ends are masked, not padded. The
-// Pallas kernel's 8-row sublane blocking and top padding are TPU layout
-// constraints and have no counterpart here.
+// What held the first design back: one block per (output hop-tile j, batch
+// b), its threads walking u one sample at a time (4 passes at hop 1024),
+// each summing its r terms in a loop with runtime bounds. nvcc unrolls that
+// loop by 4 with the loads interleaved with their uses, so a thread moved
+// 4-byte loads a few at a time, in a chain of dependent round trips to
+// device memory: 2 per pass at r = 6. In a grid of one or two waves nothing
+// hid that chain, and the kernel took about twice its bound at the piece.
+//
+// Design: the same grid, one block per (hop-tile j, batch b), and no atomics
+// or second pass: each output sample is summed in a register and written
+// once. A thread owns 4 consecutive samples u..u+3 of the tile and moves
+// them as one float4 where hop and L are multiples of 4 and the pointers
+// 16-byte aligned (every path's shape), else as 4 masked scalars in the same
+// structure. A block of min(256, hop / 4) threads covers a tile of up to
+// 1024 samples in one pass, and takes further passes over a wider one. The
+// loop over m is unrolled to kMaxRatio terms, those outside [m_lo, m_hi]
+// (frame rows outside [0, N) at the two ragged ends) skipped by a branch
+// that is uniform across the block: a thread issues the loads of every
+// frame slice frames[b, j-m, m*hop + u ..] and of the window's beside them
+// before its first multiply, so one round trip serves all r terms, with
+// 16-byte loads. Above kMaxRatio the thread takes the terms in chunks of
+// kMaxRatio, each chunk's loads issued together. The sum is an unfused
+// multiply then an add, m ascending (__fmul_rn, __fadd_rn: no FMA
+// contraction), the order of the plain version (ops/stft.py:overlap_add
+// after frames * window), so the two agree bit for bit. The Pallas kernel's
+// 8-row sublane blocking and top padding are TPU layout constraints and have
+// no counterpart here.
 //
 // K1 backward: the custom VJP of windowed_ola_pallas (_ola_bwd,
 // audio_cut_tpu/ops/pallas/ola.py:77). For the cotangent g [B, (N-1)*hop + L]:
@@ -78,38 +98,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void windowed_ola_kernel(const float* __restrict__ frames,
-                                    const float* __restrict__ window,
-                                    float* __restrict__ out,
-                                    int n_frames, int frame_len, int hop) {
-    const int r = frame_len / hop;
-    const int j = blockIdx.x;            // output hop-tile
-    const long long b = blockIdx.y;      // batch row
-    const long long frame_stride = (long long)frame_len;
-    const float* fb = frames + b * (long long)n_frames * frame_stride;
-    float* ob = out + b * (long long)(n_frames + r - 1) * hop + (long long)j * hop;
-
-    // frames j-m must lie in [0, n_frames): m in [m_lo, m_hi]
-    const int m_lo = max(0, j - (n_frames - 1));
-    const int m_hi = min(r - 1, j);
-    for (int u = threadIdx.x; u < hop; u += blockDim.x) {
-        float acc = 0.0f;
-        for (int m = m_lo; m <= m_hi; ++m) {
-            const int col = m * hop + u;
-            // unfused multiply then add, in the plain version's order
-            // (m ascending), so the two agree bit for bit
-            acc = __fadd_rn(acc, __fmul_rn(fb[(long long)(j - m) * frame_stride + col],
-                                           window[col]));
-        }
-        ob[u] = acc;
-    }
-}
-
-// Each thread of the backward kernels owns 4 consecutive columns; with VEC
+// Each thread of the kernels owns 4 consecutive samples (columns); with VEC
 // (hop and L multiples of 4, every pointer 16-byte aligned) it moves them as
-// one float4, else as 4 scalars.
+// one float4, else as 4 scalars masked at the run's end.
 constexpr int kCols = 4;
+// K1's terms whose loads a thread issues together: r = 6 (the ConvTDF's
+// n_fft / hop) and r = 4 (the spectral backend's) in one round trip. More
+// slots only cost registers and time
+constexpr int kMaxRatio = 6;
 
 template <bool VEC>
 __device__ __forceinline__ float4 load4(const float* p, int c, int limit) {
@@ -122,6 +118,68 @@ __device__ __forceinline__ float4 load4(const float* p, int c, int limit) {
     v.z = c + 2 < limit ? p[c + 2] : 0.0f;
     v.w = c + 3 < limit ? p[c + 3] : 0.0f;
     return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, int c, int limit, float4 v) {
+    if (VEC) {
+        *reinterpret_cast<float4*>(p + c) = v;
+        return;
+    }
+    const float vals[kCols] = {v.x, v.y, v.z, v.w};
+    for (int k = 0; k < kCols && c + k < limit; ++k) {
+        p[c + k] = vals[k];
+    }
+}
+
+// acc + a * b, the product rounded before the add (never an FMA)
+__device__ __forceinline__ float4 mul_add4(float4 acc, float4 a, float4 b) {
+    return make_float4(__fadd_rn(acc.x, __fmul_rn(a.x, b.x)), __fadd_rn(acc.y, __fmul_rn(a.y, b.y)),
+                       __fadd_rn(acc.z, __fmul_rn(a.z, b.z)), __fadd_rn(acc.w, __fmul_rn(a.w, b.w)));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+windowed_ola_kernel(const float* __restrict__ frames, const float* __restrict__ window,
+                    float* __restrict__ out, int n_frames, int frame_len, int hop) {
+    const int r = frame_len / hop;
+    const int j = blockIdx.x;            // output hop-tile
+    const long long b = blockIdx.y;      // batch row
+    const float* fb = frames + b * (long long)n_frames * frame_len;
+    float* ob = out + b * (long long)(n_frames + r - 1) * hop + (long long)j * hop;
+
+    // frames j-m must lie in [0, n_frames): m in [m_lo, m_hi]
+    const int m_lo = max(0, j - (n_frames - 1));
+    const int m_hi = min(r - 1, j);
+    for (int u = threadIdx.x * kCols; u < hop; u += blockDim.x * kCols) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int m0 = m_lo; m0 <= m_hi; m0 += kMaxRatio) {
+            // every term's loads first: frame j-m's run m*hop .. m*hop+hop
+            // and the window's, at this thread's 4 samples
+            float4 fv[kMaxRatio], wv[kMaxRatio];
+#pragma unroll
+            for (int k = 0; k < kMaxRatio; ++k) {
+                const int m = m0 + k;
+                if (m <= m_hi) {
+                    const long long col = (long long)m * hop;
+                    fv[k] = load4<VEC>(fb + (long long)(j - m) * frame_len + col, u, hop);
+                    wv[k] = load4<VEC>(window + col, u, hop);
+                }
+            }
+            // then the sum, m ascending
+#pragma unroll
+            for (int k = 0; k < kMaxRatio; ++k) {
+                if (m0 + k <= m_hi) {
+                    acc = mul_add4(acc, fv[k], wv[k]);
+                }
+            }
+        }
+        store4<VEC>(ob, u, hop, acc);
+    }
+}
+
+bool aligned16(const void* p) {
+    return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0;
 }
 
 template <bool VEC>
@@ -143,14 +201,7 @@ __global__ void ola_backward_frames_kernel(const float* __restrict__ g,
     const float4 wv = load4<VEC>(window, c, frame_len);
     const float4 o = make_float4(__fmul_rn(gv.x, wv.x), __fmul_rn(gv.y, wv.y),
                                  __fmul_rn(gv.z, wv.z), __fmul_rn(gv.w, wv.w));
-    if (VEC) {
-        *reinterpret_cast<float4*>(out + c) = o;
-    } else {
-        const float vals[kCols] = {o.x, o.y, o.z, o.w};
-        for (int k = 0; k < kCols && c + k < frame_len; ++k) {
-            out[c + k] = vals[k];
-        }
-    }
+    store4<VEC>(out, c, frame_len, o);
 }
 
 // K1W's limits; the plan (ops/ola.py:window_plan) keeps within them
@@ -303,20 +354,9 @@ ola_backward_window_kernel(const float* __restrict__ g, const float* __restrict_
                     s = add4(s, v[k]);
                 }
             }
-            if (VEC) {
-                *reinterpret_cast<float4*>(g_window + out_col) = s;
-            } else {
-                const float vals[kCols] = {s.x, s.y, s.z, s.w};
-                for (int k = 0; k < kCols && out_col + k < frame_len; ++k) {
-                    g_window[out_col + k] = vals[k];
-                }
-            }
+            store4<VEC>(g_window, out_col, frame_len, s);
         }
     }
-}
-
-bool aligned16(const void* p) {
-    return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0;
 }
 
 }  // namespace
@@ -329,9 +369,17 @@ extern "C" int windowed_ola_launch(const void* frames, const void* window, void*
     }
     const int r = frame_len / hop;
     dim3 grid((unsigned)(n_frames + r - 1), (unsigned)batch);
-    const int threads = hop < kThreads ? ((hop + 31) / 32) * 32 : kThreads;
-    windowed_ola_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)frames, (const float*)window, (float*)out, n_frames, frame_len, hop);
+    const int lanes = (hop + kCols - 1) / kCols;  // a hop-tile's 4-sample lanes
+    const int threads = lanes < kThreads ? ((lanes + 31) / 32) * 32 : kThreads;
+    const bool vec = hop % kCols == 0 && frame_len % kCols == 0 && aligned16(frames) &&
+                     aligned16(window) && aligned16(out);
+    if (vec) {
+        windowed_ola_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)frames, (const float*)window, (float*)out, n_frames, frame_len, hop);
+    } else {
+        windowed_ola_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)frames, (const float*)window, (float*)out, n_frames, frame_len, hop);
+    }
     return (int)cudaGetLastError();
 }
 

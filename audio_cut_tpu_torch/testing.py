@@ -12,6 +12,45 @@ import torch
 from audio_cut_tpu_torch.ops.ola import WindowPlan, windowed_ola_backward_reference
 from audio_cut_tpu_torch.ops.stft import frame_signal
 
+# K1's shapes, (what, batch, n_frames, frame_len, hop): every shape a path
+# launches it at. The ConvTDF serving path (n_fft 6144, hop 1024) in pieces
+# of 2 windows and its last piece of 1 (the default piece upload), in pieces
+# of 3 (a YAML config's, and the whole-track path's last group) and of 4 (the
+# whole-track path); a piece of the spectral backend (n_fft 2048, hop 512);
+# the training forward of ConvTDF-large at batch 4.
+K1_SHAPES = [
+    ("a piece of 2 windows", 2, 256, 6144, 1024),
+    ("the last piece, 1 window", 1, 256, 6144, 1024),
+    ("pieces of 3", 3, 256, 6144, 1024),
+    ("the whole-track path's groups of 4", 4, 256, 6144, 1024),
+    ("a spectral piece", 2, 865, 2048, 512),
+    ("the training forward", 4, 128, 6144, 1024),
+]
+# the terms whose loads a K1 thread issues together (csrc/ola.cu:kMaxRatio)
+K1_MAX_RATIO = 6
+# K1's edges: (what, batch, n_frames, frame_len, hop, offset of the frames
+# from a 16 B boundary in floats). The first two take the scalar form.
+K1_EDGE_SHAPES = [
+    ("scalar path: 4 B off 16 B alignment", 2, 256, 6144, 1024, 1),
+    ("scalar path: hop not a multiple of 4", 2, 9, 18, 6, 0),
+    ("r = 1: hop equals L", 2, 9, 512, 512, 0),
+    ("r above kMaxRatio", 2, 21, 2048, 128, 0),
+    ("a single frame", 2, 1, 2048, 512, 0),
+    ("fewer frames than r", 2, 3, 6144, 1024, 0),
+]
+
+
+def k1_edge_holds(edge: str, batch: int, n: int, frame_len: int, hop: int, offset: int) -> bool:
+    """Whether the case ``edge`` of ``K1_EDGE_SHAPES`` is that edge."""
+    r = frame_len // hop
+    return {"scalar path: 4 B off 16 B alignment": offset % 4 != 0,
+            "scalar path: hop not a multiple of 4": hop % 4 != 0,
+            "r = 1: hop equals L": r == 1,
+            "r above kMaxRatio": r > K1_MAX_RATIO,
+            "a single frame": n == 1,
+            "fewer frames than r": 1 < n < r}[edge]
+
+
 # K1W's edges: (what, batch, n_frames, frame_len, hop, offset of the inputs
 # from a 16 B boundary in floats). The last two are the scalar path: a hop
 # that is no multiple of 4, and the training shape [4, 128, 6144] hop 1024
@@ -38,19 +77,30 @@ def k1w_edge_holds(edge: str, batch: int, n: int, frame_len: int, hop: int, offs
             "scalar path: 4 B off 16 B alignment": offset % 4 != 0}[edge]
 
 
+def _normal(shape: Tuple[int, ...], rng: np.random.Generator, device,
+            offset: int) -> torch.Tensor:
+    """Standard normal of ``shape`` from ``rng``, on ``device``, as a view
+    starting ``offset`` floats into its storage."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    buf = torch.empty(x.numel() + offset, device=device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(shape)
+
+
+def k1_inputs(shape: Tuple[int, ...], seed: int, device, offset: int = 0) -> torch.Tensor:
+    """K1's frames of ``shape``, standard normal from ``seed``, starting
+    ``offset`` floats into their storage."""
+    return _normal(shape, np.random.default_rng(seed), device, offset)
+
+
 def k1w_inputs(shape: Tuple[int, ...], hop: int, seed: int, device,
                offset: int = 0) -> List[torch.Tensor]:
     """frames of ``shape`` and their cotangent g, standard normal from ``seed``,
     each starting ``offset`` floats into its storage."""
     n, frame_len = shape[-2], shape[-1]
     rng = np.random.default_rng(seed)
-    out = []
-    for x_shape in (shape, shape[:-2] + ((n - 1) * hop + frame_len,)):
-        x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(device)
-        buf = torch.empty(x.numel() + offset, device=device)
-        buf[offset:] = x.reshape(-1)
-        out.append(buf[offset:].view(x_shape))
-    return out
+    return [_normal(x_shape, rng, device, offset)
+            for x_shape in (shape, shape[:-2] + ((n - 1) * hop + frame_len,))]
 
 
 def k1w_error(got: torch.Tensor, g: torch.Tensor, frames: torch.Tensor,

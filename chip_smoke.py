@@ -11,11 +11,16 @@
    first kernel launch of the process ran the library check, K0
    (``csrc/probe.cu``), exactly once, with a result equal to x * 2, and
    times K0 and ``torch.mul`` in turns (mul, K0, K0, mul);
-3. holds kernel K1 (windowed overlap-add, ``csrc/ola.cu``) against its plain
-   PyTorch version at atol 1e-5, at the shapes the main path gives it (a
-   piece of 2 windows, the last piece of 1; the whole-track path's groups of
-   4 and 3) and two others, and times it at the serving shape and the
-   whole-track path's beside its plain version, ``F.fold`` and its bound; holds K1's backward kernels (``csrc/ola.cu``:
+3. holds kernel K1 (windowed overlap-add, ``csrc/ola.cu``) equal to its plain
+   PyTorch version bit for bit, at every shape a path gives it
+   (``K1_SHAPES`` of ``audio_cut_tpu_torch/testing.py``: a piece of 2
+   windows, the last piece of 1, pieces of 3, the whole-track path's groups
+   of 4, a spectral piece, the training forward), two others and its edges
+   (``K1_EDGE_SHAPES``: the scalar form off 16 B alignment and at a hop no
+   multiple of 4, r = 1, r above the terms a thread loads together, a single
+   frame, fewer frames than r), one launch each, and times it at each of
+   those path shapes but the spectral one (timed in 6) beside its plain
+   version, ``F.fold`` and its bound; holds K1's backward kernels (``csrc/ola.cu``:
    K1B, the frames' gradient, exactly; K1W, the window's, one launch that
    reduces the rows across a thread-block cluster, within ``OLA_BWD_RTOL``
    of the sum of |terms|) against the plain backward at the same shapes, the
@@ -174,8 +179,8 @@
     4, before any serving phase (``check_k1w_profile``): two launches give
     the same bits, and one profiled call runs one device kernel;
 13. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
-    calls'; its entry also lists its times at the serving shape, the
-    whole-track path's and the spectral backend's under ``shapes``, K2's at the
+    calls'; its entry also lists its times at every timed shape under
+    ``shapes``, the piece's first, K2's at the
     bundle's grid and librosa_onset's) and, last,
     ``{"ok": true, "device": ...}``.
 
@@ -201,7 +206,6 @@ SONG_S = 60.0
 CHORUS_S = 40.0  # the vpbd phase's song is loud from here on: 10 of its 30 bars
 CALLS = 2
 KERNEL_SOURCES = ("probe", "ola", "frame_stats")
-OLA_ATOL = 1e-5
 # K1W against the plain backward, per column c: |kernel - plain| <= rtol *
 # sum_{b,i} |g * frames|. Both sum the same float32 products in another order
 # (K1W: rows in order within a lane, the lanes of a block, then the ranks of
@@ -232,12 +236,13 @@ PARITY_SNR_DB = 30.0
 # (batch or None, n_frames, frame_len, hop): the serving shape first (a piece
 # of 2 windows), then the last piece of a 60 s track (11 windows in pieces of
 # 2, ..., 2, 1), the whole-track path's groups (4, 4, 3: pipelined_upload
-# off), then two others
+# off), then two others. K1 is held at these and at every shape of
+# ``testing.K1_SHAPES``; the backward kernels at these.
 OLA_SHAPES = [(2, 256, 6144, 1024), (1, 256, 6144, 1024), (4, 256, 6144, 1024),
               (3, 256, 6144, 1024), (None, 21, 512, 128), (3, 13, 256, 64)]
-# K1 timed at the serving shape and at the whole-track path's (the serving
-# shape before the piece upload)
-K1_WHOLE_SHAPE = OLA_SHAPES[2]
+# K1's timed inputs: at least this many sets, and together more than the L2
+K1_TIMED_SETS = 4
+L2_BYTES = 50e6  # H100 SXM, NVIDIA's data sheet
 # (frames, bins): the feature grid of a 60 s song first (n_fft 2048, hop 2205),
 # then of a 3-minute song, the JAX package's edge shape and a single frame;
 # then edges: one more frame than an H100 has SMs (133) and fewer (50),
@@ -563,6 +568,8 @@ def time_k1(torch, dev, shape, hop: int, label: str):
     """K1's device time at ``shape`` [B, N, L] and ``hop`` beside its plain
     version, ``F.fold`` and its bound; the wrapper's time per Python call
     printed apart."""
+    import math
+
     import torch.nn.functional as F
 
     from audio_cut_tpu_torch.ops.ola import windowed_ola_cuda, windowed_ola_reference
@@ -571,10 +578,10 @@ def time_k1(torch, dev, shape, hop: int, label: str):
     batch, n, L = shape
     total = (n - 1) * hop + L
     window = hann_window(L, device=dev)
-    # rotate over 4 input sets (each more than 25 MB, together more than the
-    # 50 MB L2), so every launch reads its frames from device memory as the
-    # serving path does
-    sets = [torch.randn(shape, device=dev) for _ in range(4)]
+    # rotate over K1_TIMED_SETS input sets, more where they would fit the L2
+    # together, so every launch reads its frames from device memory
+    count = max(K1_TIMED_SETS, math.ceil(L2_BYTES / (batch * n * L * 4)))
+    sets = [torch.randn(shape, device=dev) for _ in range(count)]
     nxt = _rotating(sets)
 
     def fold(x):
@@ -600,47 +607,63 @@ def time_k1(torch, dev, shape, hop: int, label: str):
     }
     wrapper_ms = call_ms(kernel)
     print(f"K1 {label} {tuple(shape)} hop {hop}, device time per call (CUDA graph "
-          f"replay of 100 calls, median of 5): kernel {timing['ms']:.4f} ms, "
+          f"replay of 100 calls, median of 5, {count} input sets): kernel {timing['ms']:.4f} ms, "
           f"plain {timing['plain_ms']:.4f} ms, F.fold {timing['library_ms']:.4f} ms; "
-          f"bound {bound:.4f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s)")
+          f"bound {bound:.4f} ms ({moved} bytes at {HBM_BYTES_PER_S:.3e} B/s), "
+          f"{bound / timing['ms']:.3f} of it")
     print(f"K1 {label}: wrapper called from Python 100 times in a row, "
           f"{wrapper_ms:.4f} ms per call (CUDA events; includes the host's launch rate)")
     return timing
 
 
-def k1_error(torch, dev, shape, hop: int) -> float:
-    """max |K1 - plain| on seeded frames of ``shape``; fails beyond OLA_ATOL."""
-    import numpy as np
-
-    from audio_cut_tpu_torch.ops.ola import windowed_ola_cuda, windowed_ola_reference
+def k1_error(torch, dev, shape, hop: int, offset: int = 0) -> float:
+    """max |K1 - plain| on seeded frames of ``shape``, ``offset`` floats off
+    their storage's start; fails unless the two are equal bit for bit and K1
+    launched once."""
+    from audio_cut_tpu_torch.ops.ola import K1, windowed_ola_cuda, windowed_ola_reference
     from audio_cut_tpu_torch.ops.stft import hann_window
+    from audio_cut_tpu_torch.testing import k1_inputs
 
     n, L = shape[-2:]
-    frames = torch.from_numpy(
-        np.random.default_rng(n + L).standard_normal(shape).astype(np.float32)).to(dev)
+    frames = k1_inputs(shape, n + L, dev, offset)
     window = hann_window(L, device=dev)
+    before = K1.launches
     got = windowed_ola_cuda(frames, window, hop)
     want = windowed_ola_reference(frames, window, hop)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    print(f"K1 {shape} hop {hop}: max |kernel - plain| = {err:.3e} (atol {OLA_ATOL})")
-    if not (got.shape == want.shape and err <= OLA_ATOL):
-        fail(f"K1 disagrees with its plain version at {shape} hop {hop}: {err}")
+    same = got.shape == want.shape and torch.equal(got, want)
+    err = float((got - want).abs().max()) if got.shape == want.shape else float("inf")
+    print(f"K1 {shape} hop {hop}, offset {4 * offset} B: max |kernel - plain| = {err:.3e}, "
+          f"equal: {same}")
+    if not same or K1.launches != before + 1:
+        fail(f"K1 differs from its plain version at {shape} hop {hop}, offset {offset}: {err}")
     return err
 
 
 def check_k1(torch, dev):
-    """K1 against its plain version at OLA_SHAPES; times at the serving shape."""
+    """K1 equal to its plain version at OLA_SHAPES, at every path shape
+    (``K1_SHAPES``) and at its edges (``K1_EDGE_SHAPES``); timed at each path
+    shape but the spectral piece's, which the spectral phase times at the
+    shape its path gives. Returns the largest |K1 - plain| and the timings,
+    each with its shape and hop, the serving shape's first."""
+    from audio_cut_tpu_torch.testing import K1_EDGE_SHAPES, K1_SHAPES, k1_edge_holds
+
     max_err = 0.0
-    for batch, n, L, hop in OLA_SHAPES:
+    shapes = OLA_SHAPES + [(b, n, L, hop) for _, b, n, L, hop in K1_SHAPES
+                           if (b, n, L, hop) not in OLA_SHAPES]
+    for batch, n, L, hop in shapes:
         max_err = max(max_err, k1_error(torch, dev, (n, L) if batch is None else (batch, n, L), hop))
-    batch, n, L, hop = OLA_SHAPES[0]
-    timing = time_k1(torch, dev, (batch, n, L), hop, "serving shape")
-    timing["max_abs_err"] = max_err
-    batch, n, L, hop = K1_WHOLE_SHAPE
-    whole = time_k1(torch, dev, (batch, n, L), hop, "whole-track shape")
-    whole["max_abs_err"] = max_err
-    return max_err, timing, whole
+    for edge, batch, n, L, hop, offset in K1_EDGE_SHAPES:
+        if not k1_edge_holds(edge, batch, n, L, hop, offset):
+            fail(f"K1 edge {edge!r} is not that edge at ({batch}, {n}, {L}) hop {hop}")
+        print(f"K1 edge, {edge}:")
+        max_err = max(max_err, k1_error(torch, dev, (batch, n, L), hop, offset))
+    timings = []
+    for what, batch, n, L, hop in K1_SHAPES:
+        if what != "a spectral piece":
+            timing = time_k1(torch, dev, (batch, n, L), hop, what)
+            timings.append({"shape": [batch, n, L], "hop": hop, "max_abs_err": max_err, **timing})
+    return max_err, timings
 
 
 def _fold_backward(torch, frames, window, hop, wrt):
@@ -1730,8 +1753,13 @@ def run_spectral(torch, dev, work: Path, audio):
     if not snr >= SPECTRAL_SNR_DB:
         fail(f"spectral: the card's vocal is {snr:.2f} dB from the CPU's, < {SPECTRAL_SNR_DB} dB")
 
-    # K1 at the shape this path gives it: one piece's iSTFT frames
+    # K1 at the shape this path gives it: one piece's iSTFT frames, the
+    # spectral piece of K1_SHAPES
+    from audio_cut_tpu_torch.testing import K1_SHAPES
+
     shape, hop = (want["batch"], window // backend.hop + 1, backend.n_fft), backend.hop
+    if ("a spectral piece", *shape, hop) not in K1_SHAPES:
+        fail(f"spectral: K1 runs at {shape} hop {hop}, not the spectral piece of K1_SHAPES")
     k1_err = k1_error(torch, dev, shape, hop)
     timing = time_k1(torch, dev, shape, hop, "spectral shape")
     timing["max_abs_err"] = k1_err
@@ -2568,7 +2596,8 @@ def main() -> int:
 
     build_kernels()
     k0_timing = check_k0(torch, dev)
-    k1_err, k1_timing, k1_whole = check_k1(torch, dev)
+    k1_err, k1_timings = check_k1(torch, dev)
+    k1_timing = k1_timings[0]  # the serving shape, a piece of 2 windows
     k1b_timing, k1w_err, _ = check_k1_backward(torch, dev)
     k2_err, k2_timings = check_k2(torch, dev)
     k2_timing = k2_timings[0]
@@ -2643,13 +2672,10 @@ def main() -> int:
         "bound_ms": k1_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k1_timing["library_ms"],
-        # the serving shape (the numbers above), the whole-track path's and
-        # the spectral backend's
-        "shapes": [{"shape": list(shape), "hop": hop, "max_abs_err": t["max_abs_err"],
-                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "library_ms": t["library_ms"]}
-                   for (*shape, hop), t in ((OLA_SHAPES[0], k1_timing), (K1_WHOLE_SHAPE, k1_whole),
-                                            ((*spectral_shape, spectral_hop), k1_spectral))],
+        # every timed shape: the serving shape (the numbers above) first,
+        # then the other path shapes, the spectral piece last
+        "shapes": k1_timings + [{"shape": list(spectral_shape), "hop": spectral_hop,
+                                 **k1_spectral}],
     }, {
         "name": "K1 backward (g_frames) ola_backward_frames",
         "route": "cuda",

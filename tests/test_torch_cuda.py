@@ -4,8 +4,10 @@ where torch sees no CUDA device. Run on a GPU machine with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1 is held against its plain version at atol 1e-5 (the tolerance the JAX
-package holds its Pallas kernel to); both sum the same products in the same
-order, so they agree to the bit in practice. K2 is held against its plain
+package holds its Pallas kernel to), and bit for bit (``torch.equal``) at
+every shape a path launches it at and at its edges (``K1_SHAPES`` and
+``K1_EDGE_SHAPES`` of ``audio_cut_tpu_torch/testing.py``): both round each
+product, then add the terms in the same order, m ascending. K2 is held against its plain
 version at rtol 2e-4 / atol 2e-5, the JAX package's bound for its own
 kernel: the same transcendentals, summed over the bins in another order.
 K1's backward: the frames' gradient (K1B) is one product per element and is
@@ -20,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from audio_cut_tpu_torch.testing import K1W_EDGE_SHAPES, k1w_edge_holds, k1w_error, k1w_inputs
+from audio_cut_tpu_torch.testing import (
+    K1_EDGE_SHAPES, K1_SHAPES, K1W_EDGE_SHAPES, k1_edge_holds, k1_inputs, k1w_edge_holds, k1w_error,
+    k1w_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +58,32 @@ def test_k1_matches_plain_version(cuda, batch, n, L, hop):
     assert K1.launches == before + 1
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _k1_equals_plain_version(device, batch, n, L, hop, offset=0):
+    from audio_cut_tpu_torch.ops.ola import K1, windowed_ola, windowed_ola_reference
+    from audio_cut_tpu_torch.ops.stft import hann_window
+
+    frames = k1_inputs((batch, n, L), n + L, device, offset)
+    window = hann_window(L, device=device)
+    before = K1.launches
+    got = windowed_ola(frames, window, hop)
+    want = windowed_ola_reference(frames, window, hop)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    assert got.shape == want.shape == (batch, (n - 1) * hop + L)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("what, batch, n, L, hop", K1_SHAPES)
+def test_k1_equals_plain_version_at_every_path_shape(cuda, what, batch, n, L, hop):
+    _k1_equals_plain_version(cuda, batch, n, L, hop)
+
+
+@pytest.mark.parametrize("edge, batch, n, L, hop, offset", K1_EDGE_SHAPES)
+def test_k1_equals_plain_version_at_its_edges(cuda, edge, batch, n, L, hop, offset):
+    assert k1_edge_holds(edge, batch, n, L, hop, offset), edge
+    _k1_equals_plain_version(cuda, batch, n, L, hop, offset)
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from audio_cut_tpu_torch.testing import K1_EDGE_SHAPES
+
 jnp = pytest.importorskip("jax.numpy")
 
 J = importlib.import_module("audio_cut_tpu.ops.stft")
@@ -114,3 +116,32 @@ def test_ola_kernel_source_matches_wrapper_signature():
     m = re.search(r'extern "C" int windowed_ola_launch\(([^)]*)\)', src, re.S)
     assert m is not None and K1.symbol == "windowed_ola_launch"
     assert len(m.group(1).split(",")) == len(K1._argtypes) == 8
+
+
+def test_ola_kernel_terms_in_flight_match_the_shared_edges():
+    """The edge ``r above kMaxRatio`` of ``testing.K1_EDGE_SHAPES`` is one for
+    the kernel's own kMaxRatio."""
+    import re
+    from pathlib import Path
+
+    from audio_cut_tpu_torch.testing import K1_MAX_RATIO
+
+    src = (Path(T.__file__).resolve().parents[1] / "csrc" / "ola.cu").read_text()
+    assert re.findall(r"constexpr int kMaxRatio = (\d+);", src) == [str(K1_MAX_RATIO)]
+
+
+@pytest.mark.parametrize("edge, batch, n, L, hop, offset", K1_EDGE_SHAPES)
+def test_k1_edge_cases_are_their_edges(edge, batch, n, L, hop, offset):
+    """Each of K1's shared edge cases (the card tests hold the kernel there)
+    is that edge, and K1's plain version agrees with the JAX reference on it."""
+    from audio_cut_tpu.ops.pallas.ola import windowed_ola_reference
+    from audio_cut_tpu_torch.ops.ola import windowed_ola_reference as plain
+    from audio_cut_tpu_torch.testing import k1_edge_holds, k1_inputs
+
+    assert k1_edge_holds(edge, batch, n, L, hop, offset)
+    frames = k1_inputs((batch, n, L), n + L, "cpu", offset)
+    got = plain(frames, T.hann_window(L), hop).numpy()
+    want = np.asarray(windowed_ola_reference(jnp.asarray(frames.numpy()),
+                                             jnp.asarray(np.array(J.hann_window(L))), hop))
+    assert got.shape == want.shape == (batch, (n - 1) * hop + L)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
