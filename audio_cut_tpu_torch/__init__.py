@@ -13,10 +13,12 @@ arguments ``segments=``/``alignment=`` turn it); in ``hybrid_mdd``
 over a feature pass, the separation only labelling the segments); and in
 ``vocal_separation``. The pause detector's legacy multi-feature mode
 (``enable_relative_energy_mode: false``, YIN and LPC on the vocal stem's
-device) runs under the modes that detect pauses. ROADMAP.md lists what comes
-next.
+device) runs under the modes that detect pauses. ``separate_and_segment_batch()``
+runs many tracks: one separation pass over the CUDA devices, then each
+track's mode over its injected stems, with the manifests of single calls.
+ROADMAP.md lists what comes next.
 """
 
-from audio_cut_tpu_torch.api import separate_and_segment
+from audio_cut_tpu_torch.api import separate_and_segment, separate_and_segment_batch
 
-__all__ = ["separate_and_segment"]
+__all__ = ["separate_and_segment", "separate_and_segment_batch"]

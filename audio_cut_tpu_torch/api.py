@@ -11,7 +11,16 @@ device and no explicit ``"cpu"`` the call raises. The port runs the default
 lyrics alignment on (provider ``auto``, not strict) before
 ``runtime_overrides`` apply; the manifest then echoes the resolved
 ``intent``. Where lyrics were aligned, each manifest segment carries the
-words it holds. The batch entry point is not in the port yet (ROADMAP.md).
+words it holds.
+
+``separate_and_segment_batch`` processes many tracks: one separation pass
+over the devices of a mesh (``parallel/batch.py:separate_tracks_mesh``, every
+CUDA device by default), then each track's detection, cutting and export
+with its stems injected (``separation/precomputed.py``), one manifest per
+track in its own export subdirectory. Its manifests' cuts and segments equal
+single calls'. Unlike the JAX package, a failure of the mesh pass itself
+raises (a track that fails to load or to cut fills its own slot), and
+nothing falls back to the CPU.
 
 Unlike the JAX package, a failure of the manifest's lyrics attach raises
 instead of leaving the segments without lyrics.
@@ -26,8 +35,11 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import logging
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+from torch.profiler import record_function
 
 from audio_cut_tpu_torch.config import get_config_manager
 from audio_cut_tpu_torch.config.auto_profile import resolve_smart_cut_intent
@@ -35,6 +47,8 @@ from audio_cut_tpu_torch.config.manager import get_nested, set_nested
 from audio_cut_tpu_torch.pipeline.qa import build_qa_report
 from audio_cut_tpu_torch.pipeline.splitter import SmartSplitter
 from audio_cut_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 def _apply_call_overrides(mgr, *, device, strict_gpu, layout, overrides) -> None:
@@ -130,6 +144,147 @@ def separate_and_segment(
         mpath.write_text(json.dumps(manifest, ensure_ascii=False, indent=2), encoding="utf-8")
         manifest["manifest_path"] = mpath.as_posix()
     return manifest
+
+
+def separate_and_segment_batch(
+    *,
+    input_uris: Sequence[str],
+    export_dir: str,
+    mode: Optional[str] = None,
+    device: Optional[str] = None,
+    export_types: Optional[Sequence[str]] = None,
+    layout: Optional[Mapping[str, Any]] = None,
+    strict_gpu: Optional[bool] = None,
+    export_manifest: bool = True,
+    manifest_filename: str = "SegmentManifest.json",
+    runtime_overrides: Optional[Mapping[str, Any]] = None,
+    mesh: Any = None,
+    workers: Optional[int] = None,
+) -> List[Dict[str, Any]]:
+    """Process N tracks: one manifest per track, in input order.
+
+    The separation runs once for the whole batch over ``mesh``
+    (``parallel/mesh.make_mesh``; by default every CUDA device, or the CPU
+    for ``device="cpu"``), each track with its single-call OLA plan. Then
+    each track's mode runs on ``workers`` host threads (1 by default) on the
+    staged path (``device_pipeline.fused_program`` off for the call) with
+    its vocal injected through ``PrecomputedStemEngine``. ``librosa_onset``
+    without separation skips the mesh pass. Each track exports to
+    ``export_dir/<input stem>/`` (``<stem>_1``, ... on a name collision). A
+    track that fails to load or to cut reports ``{"success": False,
+    "error", "input_file"}`` in its slot; the rest of the batch goes on.
+    """
+    from audio_cut_tpu_torch.io.audio import load_audio
+    from audio_cut_tpu_torch.parallel.batch import separate_tracks_mesh
+    from audio_cut_tpu_torch.parallel.mesh import make_mesh
+    from audio_cut_tpu_torch.separation.backends import make_backend
+    from audio_cut_tpu_torch.separation.engine import SeparationEngine
+    from audio_cut_tpu_torch.separation.precomputed import PrecomputedStemEngine
+
+    paths = [Path(u).expanduser().resolve() for u in input_uris]
+    for p in paths:
+        if not p.exists():
+            raise FileNotFoundError(f"input audio not found: {p}")
+    export_root = Path(export_dir).expanduser().resolve()
+
+    # per-track export subdirs: the input stem, deduplicated
+    seen: Dict[str, int] = {}
+    subdirs: List[Path] = []
+    for p in paths:
+        k = seen.get(p.stem, 0)
+        seen[p.stem] = k + 1
+        subdirs.append(export_root / (p.stem if k == 0 else f"{p.stem}_{k}"))
+
+    effective_mode = mode or "v2.2_mdd"
+    mgr = get_config_manager()
+    snapshot = mgr.snapshot()
+    manifests: List[Optional[Dict[str, Any]]] = [None] * len(paths)
+    try:
+        _apply_call_overrides(mgr, device=device, strict_gpu=strict_gpu,
+                              layout=layout, overrides=runtime_overrides)
+        # the mesh pass has separated; the host stage runs the staged bundle
+        # path over the injected stems
+        set_nested(mgr.config, "device_pipeline.fused_program", False)
+        torch_device = resolve_device(get_nested(mgr.config, "gpu_pipeline.prefer_device", "cuda"))
+        export_root.mkdir(parents=True, exist_ok=True)
+
+        layout_cfg = copy.deepcopy(get_nested(mgr.config, "segment_layout", {}) or {})
+        sample_rate = int(get_nested(mgr.config, "audio.sample_rate", 44100))
+        channels = int(get_nested(mgr.config, "audio.channels", 1))
+        backend_name = str(get_nested(mgr.config, "enhanced_separation.backend", "convtdf"))
+
+        audios: List[Optional[Any]] = [None] * len(paths)
+        for i, p in enumerate(paths):
+            try:
+                audios[i] = load_audio(str(p), target_sr=sample_rate, mono=True)[0]
+            except Exception as exc:  # the track's slot reports it; the batch goes on
+                logger.exception("batch track %s failed to load", p)
+                manifests[i] = {"success": False, "error": str(exc), "input_file": str(p)}
+
+        # the mesh pass: one separation of every track that loaded
+        vocals: List[Optional[Any]] = [None] * len(paths)
+        align = 1
+        live = [i for i in range(len(paths)) if audios[i] is not None]
+        if live and (effective_mode != "librosa_onset" or bool(get_nested(
+                mgr.config, "librosa_onset.use_vocal_separation", True))):
+            if mesh is None:
+                mesh = make_mesh("cpu") if torch_device.type == "cpu" else make_mesh()
+            # one backend instance for the mesh pass and the host stage's
+            # padding: the injected stems pad with its align
+            backend = make_backend(backend_name, sample_rate, mesh.devices[0])
+            align = SeparationEngine(sample_rate, mesh.devices[0], backend=backend)._geometry()[3]
+            with record_function("mesh_pass"):
+                stems = separate_tracks_mesh([audios[i] for i in live], sample_rate, mesh=mesh,
+                                             backend=backend)
+            for i, (vocal, _inst) in zip(live, stems):
+                vocals[i] = vocal  # the modes rebuild the instrumental as mix - vocal
+        meta = {"gpu_pipeline_mode": "mesh_batch_precomputed",
+                "gpu_pipeline_batch_size": len(paths)}
+
+        def run_one(i: int) -> Dict[str, Any]:
+            subdirs[i].mkdir(parents=True, exist_ok=True)
+            splitter = SmartSplitter(torch_device, sample_rate=sample_rate)
+            if vocals[i] is not None:
+                splitter._separator = PrecomputedStemEngine(
+                    sample_rate, torch_device, vocals[i], backend_name, meta=meta, align=align)
+            result = splitter.split_audio_seamlessly(
+                str(paths[i]), str(subdirs[i]), mode=effective_mode,
+                export_plan=list(export_types) if export_types is not None else None,
+            )
+            manifest = _build_manifest(
+                result=result, input_path=paths[i], export_dir=subdirs[i],
+                mode=effective_mode, sample_rate=sample_rate, channels=channels,
+                layout_cfg=layout_cfg,
+            )
+            if export_manifest:
+                mpath = subdirs[i] / manifest_filename
+                mpath.write_text(json.dumps(manifest, ensure_ascii=False, indent=2),
+                                 encoding="utf-8")
+                manifest["manifest_path"] = mpath.as_posix()
+            return manifest
+
+        def settle(i: int, run) -> None:
+            try:
+                manifests[i] = run()
+            except Exception as exc:  # the track's slot reports it; the batch goes on
+                logger.exception("batch track %s failed", paths[i])
+                manifests[i] = {"success": False, "error": str(exc), "input_file": str(paths[i])}
+
+        pending = [i for i in range(len(paths)) if manifests[i] is None]
+        n_workers = max(1, int(workers)) if workers else 1
+        if n_workers == 1:
+            for i in pending:
+                settle(i, lambda i=i: run_one(i))
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=n_workers) as pool:
+                futures = {i: pool.submit(run_one, i) for i in pending}
+                for i, fut in futures.items():
+                    settle(i, fut.result)
+    finally:
+        mgr.restore(snapshot)
+    return manifests  # type: ignore[return-value]
 
 
 # -- manifest -------------------------------------------------------------
@@ -355,4 +510,4 @@ def _build_manifest(
     return manifest
 
 
-__all__ = ["separate_and_segment"]
+__all__ = ["separate_and_segment", "separate_and_segment_batch"]

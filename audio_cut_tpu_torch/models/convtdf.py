@@ -408,6 +408,21 @@ class ConvTDFSeparator(nn.Module):
         """``separate_fn`` under ``inference_mode``: the serving path."""
         return self.separate_fn(audio, length)
 
+    @torch.inference_mode()
+    def separate_shifted(self, audio: torch.Tensor, length: int,
+                         shifts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``separate`` with the vocal shift-averaged over ``shifts`` sub-hop
+        offsets in one batched forward (``tiling.shift_averaged``); the
+        instrumental stays the exact complement ``audio - vocal``. The
+        counterpart of the JAX package's ``separate_shifted_fn``."""
+        from audio_cut_tpu_torch.separation.tiling import shift_averaged
+
+        if int(shifts) <= 1:
+            return self.separate_fn(audio, length)
+        fwd = shift_averaged(lambda x: self.separate_fn(x, length)[0], self.hop, shifts)
+        vocal = fwd(audio)
+        return vocal, audio[..., :length] - vocal
+
 
 def packaged_checkpoint_path() -> Optional[str]:
     """Path of the packaged large checkpoint, if this build ships one."""
@@ -483,12 +498,11 @@ class ConvTDFBackend:
         self.sep = ConvTDFSeparator(sample_rate, dtype=dtype, **geometry)
         self.sep.net.load_state_dict(load_checkpoint(ckpt), strict=True)
         self.sep.to(self.device).eval()
-        shifts = max(1, int(cfg.get("shifts", 1)))
-        if shifts > 1:
-            raise NotImplementedError(
-                "enhanced_separation.convtdf.shifts > 1 (shift averaging) is not in the "
-                "PyTorch port yet: ROADMAP.md, queue 1, 'shifts > 1 and tiled_forward_batch'")
-        self.map_group = max(1, int(cfg.get("map_group", 4)))
+        # test-time shift averaging: each window runs at ``shifts`` sub-hop
+        # offsets in one forward, so a forward takes map_group // shifts
+        # windows and its activations stay bounded at about map_group rows
+        self.shifts = max(1, int(cfg.get("shifts", 1)))
+        self.map_group = max(1, int(cfg.get("map_group", 4)) // self.shifts)
 
     def engine_geometry(self) -> Dict[str, float]:
         """Native chunk schedule: engine windows are model windows."""
@@ -498,7 +512,8 @@ class ConvTDFBackend:
             self.sample_rate, self.sep.window_samples, self.sep.n_fft, self.sep.hop)
 
     def separate_windows(self, windows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, W] model windows -> 2x [N, W], ``map_group`` windows per forward."""
+        """[N, W] model windows -> 2x [N, W], ``map_group`` windows (times
+        ``shifts`` rows) per forward."""
         from audio_cut_tpu_torch.separation.tiling import mapped_forward
 
         length = int(windows.shape[-1])
@@ -506,6 +521,6 @@ class ConvTDFBackend:
             raise NotImplementedError(
                 f"engine window {length} != the model's {self.sep.window_samples}: "
                 "re-tiling (tiled_forward_batch) is not in the PyTorch port yet: "
-                "ROADMAP.md, queue 1, 'shifts > 1 and tiled_forward_batch'")
-        return mapped_forward(lambda batch: self.sep.separate(batch, length),
+                "ROADMAP.md, queue 1, 'other separator tiers (waveunet, onnx)'")
+        return mapped_forward(lambda batch: self.sep.separate_shifted(batch, length, self.shifts),
                               windows, self.map_group)

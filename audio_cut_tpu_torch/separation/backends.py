@@ -19,6 +19,7 @@ import torch
 
 from audio_cut_tpu_torch.config import get_config
 from audio_cut_tpu_torch.ops.stft import istft, stft
+from audio_cut_tpu_torch.utils.device import indexed
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +162,7 @@ def make_backend(name: str, sample_rate: int, device: torch.device):
             f"ROADMAP.md, queue 1, '{_NOT_PORTED[name]}'")
     if name not in ("convtdf", "spectral"):
         raise ValueError(f"unknown separation backend {name!r}")
-    device = torch.device(device)
+    device = indexed(device)  # "cuda" and "cuda:0" are one card: one backend
     key = (name, int(sample_rate), str(device), _config_key(name))
     backend = _BACKEND_CACHE.get(key)
     if backend is None:

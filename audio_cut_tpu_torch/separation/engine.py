@@ -150,6 +150,27 @@ def quantize_upload(padded: np.ndarray):
     return raw, np.float32(peak / 32767.0)
 
 
+def upload_pair(audio: np.ndarray, padded_len: int):
+    """(raw, scale) of the host-to-device upload of ``audio`` padded with
+    zeros to ``padded_len``: int16 quantized at its peak under
+    ``device_pipeline.upload_int16`` (the default), else the float32 samples
+    and scale 1. The device's mix is ``dequantize(raw, scale, device)``."""
+    n = audio.shape[-1]
+    padded = np.pad(audio, (0, padded_len - n)) if padded_len != n else audio
+    if bool(get_config("device_pipeline.upload_int16", True)):
+        # half the upload bytes at -90 dB quantization; the host keeps the
+        # exact input for splicing and the complement instrumental
+        return quantize_upload(padded)
+    return padded, np.float32(1.0)
+
+
+def dequantize(raw: np.ndarray, scale, device: torch.device) -> torch.Tensor:
+    """The mix on ``device``: ``raw * scale`` in float32, as the engine's
+    pieces compute it (``scale`` is a float32 value, so the product rounds
+    as x * float32(scale))."""
+    return torch.mul(torch.from_numpy(raw).to(device), float(scale))
+
+
 def ola_plan(
     padded_len: int,
     sr: int,
@@ -332,11 +353,15 @@ class SeparationResult:
 class SeparationEngine:
     """Runs a backend's model windows over the whole track on one device."""
 
-    def __init__(self, sample_rate: int, device: torch.device) -> None:
+    def __init__(self, sample_rate: int, device: torch.device, backend=None) -> None:
+        """``backend``: an instance to run (the batch's, shared with its mesh
+        pass), else the one ``enhanced_separation.backend`` names, built on
+        first use."""
         self.sample_rate = int(sample_rate)
         self.device = torch.device(device)
-        self._backend = None
-        self._backend_name = str(get_config("enhanced_separation.backend", "convtdf"))
+        self._backend = backend
+        self._backend_name = (backend.name if backend is not None
+                              else str(get_config("enhanced_separation.backend", "convtdf")))
 
     @property
     def backend(self):
@@ -513,13 +538,7 @@ class SeparationEngine:
         padded_len = padded_track_len(n, self.sample_rate, self._geometry()[3])
 
         t0 = time.time()
-        padded = np.pad(audio, (0, padded_len - n)) if padded_len != n else audio
-        if bool(get_config("device_pipeline.upload_int16", True)):
-            # half the upload bytes at -90 dB quantization; the host keeps the
-            # exact input for splicing and the complement instrumental
-            raw, scale = quantize_upload(padded)
-        else:
-            raw, scale = padded, np.float32(1.0)
+        raw, scale = upload_pair(audio, padded_len)
         layout = self._piece_layout(padded_len)
         if layout is None:
             mode, layout = "device_ola", self._whole_layout(padded_len)

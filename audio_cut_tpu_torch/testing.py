@@ -16,13 +16,18 @@ from audio_cut_tpu_torch.ops.stft import frame_signal
 # launches it at. The ConvTDF serving path (n_fft 6144, hop 1024) in pieces
 # of 2 windows and its last piece of 1 (the default piece upload), in pieces
 # of 3 (a YAML config's, and the whole-track path's last group) and of 4 (the
-# whole-track path); a piece of the spectral backend (n_fft 2048, hop 512);
-# the training forward of ConvTDF-large at batch 4.
+# whole-track path); under shift averaging a forward holds windows x shifts
+# rows (shifts 2: pieces of 2 give 4 rows, the last piece 2; shifts 3: one
+# window a forward, 3 rows); the batch's groups of 4 windows and its last
+# group of 2; a piece of the spectral backend (n_fft 2048, hop 512); the
+# training forward of ConvTDF-large at batch 4.
 K1_SHAPES = [
-    ("a piece of 2 windows", 2, 256, 6144, 1024),
+    ("a piece of 2 windows; shifts 2: the last piece; the batch's last group",
+     2, 256, 6144, 1024),
     ("the last piece, 1 window", 1, 256, 6144, 1024),
-    ("pieces of 3", 3, 256, 6144, 1024),
-    ("the whole-track path's groups of 4", 4, 256, 6144, 1024),
+    ("pieces of 3; shifts 3: a window", 3, 256, 6144, 1024),
+    ("the whole-track path's groups of 4; shifts 2: a piece; the batch's groups",
+     4, 256, 6144, 1024),
     ("a spectral piece", 2, 865, 2048, 512),
     ("the training forward", 4, 128, 6144, 1024),
 ]

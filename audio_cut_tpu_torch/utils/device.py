@@ -24,3 +24,12 @@ def resolve_device(prefer: object) -> torch.device:
                 "no CUDA device; pass device='cpu' to run on the CPU")
         return torch.device(name)
     raise ValueError(f"gpu_pipeline.prefer_device must be 'cuda', 'cuda:N' or 'cpu', got {prefer!r}")
+
+
+def indexed(device: torch.device) -> torch.device:
+    """``cuda`` -> ``cuda:<current device>``; any other device as it is. Two
+    names of one card then compare (and key caches) equal."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -141,7 +141,27 @@
    ``fused_pipelined_p4``;
 7. runs the first slice's path, ``mode="vocal_separation"``, once, and one
    model window through the separator on the card (bfloat16, K1) and on the
-   CPU (float32, plain versions) at SNR >= 30 dB;
+   CPU (float32, plain versions) at SNR >= 30 dB.
+   Then shift averaging (``SHIFTS``: ``enhanced_separation.convtdf.shifts:
+   2``): v2.2_mdd cold and warm, each with the K1 launches ``expected_pass``
+   computes for it (a forward takes map_group // 2 windows, so one K1 a
+   piece at 4 rows, 2 for the last piece: 6 a call, their rows recorded at
+   each launch), K2 once, K0 once in the phase, ``fused_pipelined_p6`` and
+   the exact splice; it prints the walls, the peak memory and the shifted
+   vocal's SNR against the ``shifts: 1`` warm vocal, and holds one window at
+   shifts 2 (2 rows in one forward) card against CPU at >= 30 dB.
+   Then the batch entry point, ``separate_and_segment_batch``, over
+   song.wav, song_chorus.wav and a ``BATCH_SHORT_S`` song, after a warm
+   single call of each (K1 6, 6 and 4, K2 1 each): the batch launches K1 8
+   times at the rows ``expected_batch`` computes (the 45 s bucket's 8
+   windows, then the two 60 s tracks' 22, in forwards of 4: 7 at 4 rows, 1
+   at 2), K2 3 and K0 1; every manifest succeeds under
+   ``mesh_batch_precomputed`` with ``gpu_pipeline_batch_size`` 3, with the
+   cuts and segments of its single call and the exact splice; the stems of
+   ``separate_tracks_mesh`` lie within ``BATCH_STEM_ATOL`` of
+   ``SeparationEngine.separate_on_device``'s, and the injected engine's mix
+   equals the engine's bit for bit. It prints the batch's wall and peak
+   memory beside the single calls';
 8. profiles one more warm v2.2_mdd call and one more warm vpbd_acoustic call
    (on the song of the vpbd phase) (``torch.profiler``): wall time, the spans of the pass (load, separation,
    detection bundle, host tail, export), the card's busy time, the kernels
@@ -181,7 +201,9 @@
 13. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
     calls'; its entry also lists its times at every timed shape under
     ``shapes``, the piece's first, K2's at the
-    bundle's grid and librosa_onset's) and, last,
+    bundle's grid and librosa_onset's; under ``paths`` K1's launches and
+    shapes in the shifts phase's two calls and in the batch, and K2's in the
+    batch) and, last,
     ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
@@ -320,6 +342,12 @@ YAML_PIECES = {"device_pipeline.piece_windows": 3}
 # is equal bit for bit
 PIECE_SNR_DB = {"vocal": 40.0, "instrumental": 30.0}
 PIECE_ATOL = 1e-2
+# the shifts phase: shift averaging at 2 sub-hop offsets on the main path
+SHIFTS = {"enhanced_separation.convtdf.shifts": 2}
+# the batch phase's third track: the 45 s bucket, 8 model windows
+BATCH_SHORT_S = 40.0
+# the batch's stems against single engine runs (max |diff|)
+BATCH_STEM_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -1053,6 +1081,34 @@ class _Capture:
         self.fused.separate_and_detect_fused = self.inner
 
 
+class _K1Rows:
+    """Records (batch, frames, frame length) of every K1 launch while
+    active; the launch and its count stay K1's own."""
+
+    def __enter__(self):
+        from audio_cut_tpu_torch.ops.ola import K1
+
+        self.k1, self.shapes = K1, []
+        inner = K1.launch
+
+        def launch(device, *args):
+            self.shapes.append(tuple(args[3:6]))  # frames, window, out, batch, n, L, ...
+            return inner(device, *args)
+
+        K1.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        del self.k1.launch  # the instance attribute: the class's method is back
+
+    def counts(self, start: int = 0) -> dict:
+        """{"[b, n, L]": launches} of the launches from ``start`` on."""
+        out = {}
+        for shape in self.shapes[start:]:
+            out[str(list(shape))] = out.get(str(list(shape)), 0) + 1
+        return out
+
+
 def check_segments(m, out: Path, audio) -> None:
     """success, >= 2 segments labelled human/music, and the exported mix
     segments splice back to the PCM-24 encoding of the input exactly."""
@@ -1097,8 +1153,11 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     max_pieces)) windows, each one backend call; else one call of every
     window. The backend runs ``group`` windows a forward (``map_group`` of
     the ConvTDF, ``WINDOW_GROUP`` of the spectral mask), one K1 launch each.
-    Returns the windows, the piece sizes, K1's launches, the largest batch K1
-    sees, and the manifest labels of the fused pass and of the engine."""
+    Under ``enhanced_separation.convtdf.shifts`` s > 1 a ConvTDF forward
+    takes ``map_group // s`` windows and sends windows x s rows through K1.
+    Returns the windows, the piece sizes, K1's launches and the rows of each,
+    the largest batch K1 sees, and the manifest labels of the fused pass and
+    of the engine."""
     import math
 
     from audio_cut_tpu_torch.config import get_config
@@ -1109,16 +1168,19 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     if key in _EXPECTED:
         return _EXPECTED[key]
 
-    def cfg(name):
-        return (overrides or {}).get(f"device_pipeline.{name}", get_config(f"device_pipeline.{name}"))
+    def cfg(name, section="device_pipeline"):
+        return (overrides or {}).get(f"{section}.{name}", get_config(f"{section}.{name}"))
 
+    shifts = 1
     if backend == "convtdf":
         # the main path's own backend (cached after its first call); its model
         # window is the engine window
         model = make_backend("convtdf", SR, "cuda")
         g = model.engine_geometry()
         geometry = (g["chunk_s"], g["overlap_s"], g["halo_s"], int(g["align"]))
-        group = model.map_group
+        # the backend's rule, from the config: map_group // shifts windows a forward
+        shifts = max(1, int(cfg("shifts", "enhanced_separation.convtdf")))
+        group = max(1, int(cfg("map_group", "enhanced_separation.convtdf")) // shifts)
     else:
         geometry = (float(cfg("chunk_seconds")), float(cfg("overlap_seconds")),
                     float(cfg("halo_seconds")), int(cfg("align_hop")))
@@ -1132,9 +1194,9 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
         fused, engine = f"fused_pipelined_p{len(sizes)}", f"device_ola_pipelined_p{len(sizes)}"
     else:
         sizes, fused, engine = [windows], "fused_single_program", "device_ola"
-    out = {"windows": windows, "window": window, "sizes": sizes,
-           "k1": sum(math.ceil(k / group) for k in sizes), "batch": min(group, max(sizes)),
-           "fused": fused, "engine": engine}
+    rows = [min(group, k - j) * shifts for k in sizes for j in range(0, k, group)]
+    out = {"windows": windows, "window": window, "sizes": sizes, "k1": len(rows),
+           "rows": rows, "batch": max(rows), "fused": fused, "engine": engine}
     _EXPECTED[key] = out
     return out
 
@@ -2250,15 +2312,32 @@ def run_separation(torch, dev, work: Path, audio):
     print(f"vocal_separation: stems 24-bit x {audio.size} samples, finite, "
           f"|vocal + instrumental - mix| <= {err:.3e}")
 
-def one_window_parity(torch, dev, audio):
-    """The port's separator on one window: card (bf16, K1) vs CPU (f32, plain)."""
-    from audio_cut_tpu_torch.models.convtdf import ConvTDFSeparator
+def _backend_under(overrides: Optional[dict]):
+    """The ConvTDF backend the entry points use under ``overrides`` (the
+    backend cache's instance: they ask for "cuda", and the cache keeps the
+    backends of this script's configurations without dropping one)."""
+    from audio_cut_tpu_torch.config import get_config_manager
+    from audio_cut_tpu_torch.config.manager import set_nested
     from audio_cut_tpu_torch.separation.backends import make_backend
 
-    # the one the slice used: the entry points ask for "cuda", and the backend
-    # cache (4 entries, oldest out) must not drop the main path's for another
-    backend = make_backend("convtdf", SR, "cuda")
-    sep = backend.sep
+    mgr = get_config_manager()
+    snapshot = mgr.snapshot()
+    try:
+        for key, value in (overrides or {}).items():
+            set_nested(mgr.config, key, value)
+        return make_backend("convtdf", SR, "cuda")
+    finally:
+        mgr.restore(snapshot)
+
+
+def one_window_parity(torch, dev, audio, overrides: Optional[dict] = None):
+    """The port's separator on one window: card (bf16, K1) vs CPU (f32,
+    plain), through ``separate_shifted`` at the ``shifts`` of the backend
+    that ``overrides`` give (1: the plain forward; s: s rows in one forward)."""
+    from audio_cut_tpu_torch.models.convtdf import ConvTDFSeparator
+
+    backend = _backend_under(overrides)
+    sep, shifts = backend.sep, backend.shifts
     cpu = ConvTDFSeparator(SR, n_fft=sep.n_fft, hop=sep.hop, dim_f=sep.dim_f, dim_t=sep.dim_t,
                            channels=sep.net.first.conv1.out_channels, depth=sep.net.depth,
                            tdf_bottleneck=sep.net.first.tdf.fc1.out_features,
@@ -2267,15 +2346,194 @@ def one_window_parity(torch, dev, audio):
     w = sep.window_samples
     start = int(10.0 * SR)
     x = torch.from_numpy(audio[start:start + w].copy())[None]
-    v_gpu, _ = sep.separate(x.to(dev), w)
+    v_gpu, _ = sep.separate_shifted(x.to(dev), w, shifts)
     t0 = time.perf_counter()
-    v_cpu, _ = cpu.separate(x, w)
+    v_cpu, _ = cpu.separate_shifted(x, w, shifts)
     cpu_s = time.perf_counter() - t0
     snr = snr_db(v_cpu[0].numpy(), v_gpu[0].float().cpu().numpy())
-    print(f"one-window parity ({w} samples): vocal SNR card bf16 vs CPU f32 = {snr:.2f} dB "
-          f"(required >= {PARITY_SNR_DB}); CPU forward {cpu_s:.2f} s")
+    print(f"one-window parity ({w} samples, shifts {shifts}: {shifts} rows in one forward): "
+          f"vocal SNR card bf16 vs CPU f32 = {snr:.2f} dB (required >= {PARITY_SNR_DB}); "
+          f"CPU forward {cpu_s:.2f} s")
     if not snr >= PARITY_SNR_DB:
         fail(f"one-window parity {snr:.2f} dB < {PARITY_SNR_DB} dB")
+
+
+def run_shifts(torch, dev, work: Path, audio, base_vocal):
+    """v2.2_mdd with ``enhanced_separation.convtdf.shifts: 2``, cold (the
+    process's first shifts-2 backend) then warm: each call K1 and K2 as
+    ``expected_pass`` says (a forward takes map_group // 2 = 2 windows, so
+    one K1 a piece, at 4 rows, 2 for the last piece), K0 once, every K1 at
+    (rows, 256, n_fft), ``fused_pipelined_p6`` and the exact splice. Prints
+    the walls and peak memory, and the SNR of the warm call's vocal against
+    the default warm call's (``base_vocal``, shifts 1; printed, not held);
+    then one window at shifts 2 (2 rows) card against CPU. Returns the K1
+    launches and their shapes over the two calls."""
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.separation import fused
+
+    want = expected_pass(audio.size, overrides=SHIFTS)
+    print(f"shifts 2: expected pieces {want['sizes']}, K1 {want['k1']} at rows {want['rows']}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the shifts path starts: only its launches count
+    with _Capture(fused) as cap, _K1Rows() as rec:
+        for call in range(CALLS):
+            out = work / f"shifts{call}"
+            k1, k2, first = kernels["K1"].launches, kernels["K2"].launches, len(rec.shapes)
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                     runtime_overrides=SHIFTS)
+            wall = time.perf_counter() - t0
+            k1, k2 = kernels["K1"].launches - k1, kernels["K2"].launches - k2
+            shapes = rec.shapes[first:]
+            label = "cold" if call == 0 else "warm"
+            WALLS[f"shifts 2 {label}"] = wall
+            print(f"shifts 2 v2.2_mdd call {call} ({label}): {wall:.3f} s wall, "
+                  f"{SONG_S / wall:.2f} audio-s per wall-s (shifts 1 warm: "
+                  f"{SONG_S / WALLS['v2.2_mdd warm']:.2f}), pass "
+                  f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, {m['gpu']['gpu_pipeline_mode']}, "
+                  f"K1 launches {k1} {rec.counts(first)}, K2 launches {k2}")
+            check_pass(f"shifts 2 call {call}", m, k1, k2, overrides=SHIFTS)
+            window = (256, 6144)
+            if [b for b, *_ in shapes] != want["rows"] or any(tuple(r) != window
+                                                            for _, *r in shapes):
+                fail(f"shifts 2 call {call}: K1 at {shapes}; expected rows {want['rows']} "
+                     f"of {window}")
+            check_segments(m, out, audio)
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"shifts 2: launches in the {CALLS} calls {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    if launches["K0"] != 1:
+        fail(f"shifts 2 calls: launches {launches}; expected K0 once")
+    vocal = cap.last[0].vocal_device.cpu().numpy()
+    print(f"shifts 2: warm vocal against the shifts 1 warm vocal: SNR "
+          f"{snr_db(base_vocal, vocal):.2f} dB (printed, not held)")
+    one_window_parity(torch, dev, audio, SHIFTS)
+    profile_call(torch, work, overrides=SHIFTS, name="shifts 2")
+    return {"launches": launches["K1"], "shapes": rec.counts()}
+
+
+def expected_batch(lengths) -> list:
+    """The rows of each K1 launch of the batch's mesh pass over one device:
+    the tracks grouped by padded length (groups in ascending order), each
+    group's windows, track after track, in forwards of ``map_group``."""
+    from audio_cut_tpu_torch.separation.engine import ola_plan, padded_track_len
+
+    model = _backend_under(None)
+    g = model.engine_geometry()
+    geometry = (g["chunk_s"], g["overlap_s"], g["halo_s"], int(g["align"]))
+    groups = {}
+    for n in lengths:
+        padded = padded_track_len(n, SR, geometry[3])
+        groups[padded] = groups.get(padded, 0) + 1
+    rows = []
+    for padded, count in sorted(groups.items()):
+        total = count * len(ola_plan(padded, SR, *geometry)[0])
+        rows += [min(model.map_group, total - j) for j in range(0, total, model.map_group)]
+    return rows
+
+
+def run_batch(torch, dev, work: Path, audio):
+    """``separate_and_segment_batch`` over song.wav, song_chorus.wav and a
+    ``BATCH_SHORT_S`` song, beside a warm single call of each: every single
+    call K1 as ``expected_pass`` says and K2 once; the batch K1 as
+    ``expected_batch`` says (two 60 s tracks' 22 windows and the 45 s
+    bucket's 8 in forwards of 4) with those rows, K2 once a track, K0 once,
+    every manifest a success labelled ``mesh_batch_precomputed`` with
+    ``gpu_pipeline_batch_size`` 3, cuts and segments equal to the single
+    call's, and the exact splice. Then ``separate_tracks_mesh`` on the card
+    against ``SeparationEngine.separate_on_device`` of each track (max |diff|
+    <= ``BATCH_STEM_ATOL``), and the injected engine's mix equal to the
+    engine's. Prints the walls and peak memory of the batch and of the
+    single calls. Returns K1's and K2's launches and K1's shapes in the
+    batch."""
+    from audio_cut_tpu_torch import separate_and_segment, separate_and_segment_batch
+    from audio_cut_tpu_torch.io import read_wav, write_wav
+    from audio_cut_tpu_torch.parallel.batch import separate_tracks_mesh
+    from audio_cut_tpu_torch.separation.engine import SeparationEngine
+    from audio_cut_tpu_torch.separation.precomputed import PrecomputedStemEngine
+
+    write_wav(work / "song_short.wav", make_song(BATCH_SHORT_S, seed=11), SR, subtype="FLOAT")
+    paths = [work / "song.wav", work / "song_chorus.wav", work / "song_short.wav"]
+    tracks = [audio] + [read_wav(p)[0] for p in paths[1:]]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the single calls: only their launches count
+    singles, single_wall = [], 0.0
+    for path, track in zip(paths, tracks):
+        out = work / "single" / path.stem
+        k1, k2 = kernels["K1"].launches, kernels["K2"].launches
+        t0 = time.perf_counter()
+        m = separate_and_segment(input_uri=str(path), export_dir=str(out))
+        wall = time.perf_counter() - t0
+        single_wall += wall
+        k1, k2 = kernels["K1"].launches - k1, kernels["K2"].launches - k2
+        want = expected_pass(track.size)
+        print(f"batch phase, single call {path.name} ({track.size / SR:.0f} s): {wall:.3f} s "
+              f"wall, K1 {k1}, K2 {k2}, {m['gpu']['gpu_pipeline_mode']}")
+        if k1 != want["k1"] or k2 != 1 or m["gpu"]["gpu_pipeline_mode"] != want["fused"]:
+            fail(f"single call {path.name}: K1 {k1}, K2 {k2}, {m['gpu']}; expected K1 "
+                 f"{want['k1']}, K2 1, {want['fused']}")
+        check_segments(m, out, track)
+        singles.append(m)
+    single_peak = torch.cuda.max_memory_allocated(dev)
+
+    want_rows = expected_batch([t.size for t in tracks])
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the batch path starts: only its launches count
+    with _K1Rows() as rec:
+        t0 = time.perf_counter()
+        batch = separate_and_segment_batch(input_uris=[str(p) for p in paths],
+                                           export_dir=str(work / "batch"))
+        wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    batch_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"batch of {len(paths)} tracks: {wall:.3f} s wall against {single_wall:.3f} s for "
+          f"the {len(paths)} single calls ({sum(t.size for t in tracks) / SR / wall:.2f} against "
+          f"{sum(t.size for t in tracks) / SR / single_wall:.2f} audio-s per wall-s); peak "
+          f"memory {batch_peak} against {single_peak} bytes; launches {launches}, K1 "
+          f"{rec.counts()}")
+    if ([b for b, *_ in rec.shapes] != want_rows or launches["K2"] != len(paths)
+            or launches["K0"] != 1):
+        fail(f"batch: launches {launches}, K1 at {rec.shapes}; expected K1 rows {want_rows}, "
+             f"K2 {len(paths)}, K0 1")
+    for path, track, mb, ms in zip(paths, tracks, batch, singles):
+        gpu = mb.get("gpu") or {}
+        if (gpu.get("gpu_pipeline_mode") != "mesh_batch_precomputed"
+                or gpu.get("gpu_pipeline_batch_size") != len(paths)
+                or gpu.get("gpu_pipeline_device") != "cuda"):
+            fail(f"batch {path.name}: gpu {gpu}")
+        if mb["cuts"] != ms["cuts"] or mb["segments"] != ms["segments"]:
+            fail(f"batch {path.name}: cuts {mb['cuts']['samples']} against the single call's "
+                 f"{ms['cuts']['samples']}, or other segments")
+        check_segments(mb, work / "batch" / path.stem, track)
+        print(f"batch {path.name}: {len(mb['segments'])} segments, cuts (samples) "
+              f"{mb['cuts']['samples']}, equal to the single call's; spliced back exactly")
+
+    engine = SeparationEngine(SR, dev)
+    errs = []
+    for track, (v, i) in zip(tracks, separate_tracks_mesh(tracks, SR)):
+        v_ref, i_ref, mix_ref, _ = engine.separate_on_device(track)
+        errs.append(max(float((v - v_ref).abs().max()), float((i - i_ref).abs().max())))
+        pre = PrecomputedStemEngine(SR, dev, v, "convtdf", align=engine._geometry()[3])
+        if not torch.equal(pre.mix_device(track), mix_ref):
+            fail("batch: the injected engine's mix differs from the engine's")
+    print(f"batch: separate_tracks_mesh stems against SeparationEngine.separate_on_device, "
+          f"max |diff| per track {errs} (<= {BATCH_STEM_ATOL}); the injected mix equal bit for bit")
+    if not max(errs) <= BATCH_STEM_ATOL:
+        fail(f"batch: stems differ from single engine runs by {max(errs)}")
+    # one more warm batch under the profiler: the mesh pass's span on the
+    # card against the host stage's
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch = separate_and_segment_batch(input_uris=[str(p) for p in paths],
+                                           export_dir=str(work / "prof_batch"))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not all(m["success"] for m in batch):
+        fail("profiled batch call failed")
+    report_profile(torch, prof, wall_ms, "batch", spans_of=("mesh_pass",) + SPANS)
+    return {"K1": launches["K1"], "K2": launches["K2"], "shapes": rec.counts()}
 
 
 def _merged(intervals) -> list:
@@ -2326,6 +2584,8 @@ def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wa
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not m["success"]:
         fail(f"profiled {name} call failed")
+    print(f"profile ({name}): fused pass (gpu_pipeline_compute_ms) "
+          f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms")
     # the upload's host buffers: pinned, or a non_blocking copy would be a
     # silent synchronous one
     staging = [t for layout in engine._OLA_CACHE.values() if layout
@@ -2334,24 +2594,31 @@ def profile_call(torch, work: Path, mode: str = "v2.2_mdd", song: str = "song.wa
           f"{[t.is_pinned() for t in staging]}")
     if not staging or not all(t.is_pinned() for t in staging):
         fail(f"profile ({name}): a staging buffer of the upload is not pinned")
+    return report_profile(torch, prof, wall_ms, name)
+
+
+def report_profile(torch, prof, wall_ms: float, name: str, spans_of=SPANS):
+    """Where the time of one profiled call went: the host spans ``spans_of``,
+    the card's busy time and idle share, the top kernels, the upload copies'
+    overlap with kernels, each span's range on the card, and K1's and K2's
+    time per launch. Returns (the device kernels, their busy ms)."""
     events = prof.events()
     spans = {}
     for e in events:
-        if e.name in SPANS and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name in spans_of and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     print(f"profile (warm {name} call under torch.profiler): wall {wall_ms:.1f} ms; spans (ms): "
-          + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in SPANS)
-          + f"; fused pass (gpu_pipeline_compute_ms) {m['gpu']['gpu_pipeline_compute_ms']:.1f}")
+          + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in spans_of))
     on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     # the spans also show on the card's timeline, as the range their kernels
     # cover: one range per stream (the upload's copies run on a side stream),
     # so a span's range is the union's hull
     ranges = {}
     for e in on_card:
-        if e.name in SPANS:
+        if e.name in spans_of:
             a, b = ranges.get(e.name, (e.time_range.start, e.time_range.end))
             ranges[e.name] = (min(a, e.time_range.start), max(b, e.time_range.end))
-    kernels = [e for e in on_card if e.name not in SPANS]
+    kernels = [e for e in on_card if e.name not in spans_of]
     if not kernels:
         print(f"profile ({name}): device busy time not measured (the profiler recorded no kernels)")
         return [], 0.0
@@ -2630,10 +2897,13 @@ def main() -> int:
         bundle_parity(torch, dev, warm, audio)
         staged_check(torch, dev, work, warm, warm_m, audio)
         run_unpipelined(torch, dev, work, audio, warm)
+        base_vocal = warm[0].vocal_device.cpu().numpy()
         del warm
         run_yaml_config(torch, dev, work, audio)
         run_separation(torch, dev, work, audio)
         one_window_parity(torch, dev, audio)
+        shifts_k1 = run_shifts(torch, dev, work, audio, base_vocal)
+        batch_launches = run_batch(torch, dev, work, audio)
         profile_call(torch, work)
         profile_call(torch, work, mode="vpbd_acoustic", song="song_chorus.wav")
         train_launches, report, ckpt = run_training(torch, dev, work)
@@ -2676,6 +2946,10 @@ def main() -> int:
         # then the other path shapes, the spectral piece last
         "shapes": k1_timings + [{"shape": list(spectral_shape), "hop": spectral_hop,
                                  **k1_spectral}],
+        # K1 on the later paths: its launches and their shapes
+        "paths": {"shifts_2": shifts_k1,
+                  "batch": {"launches": batch_launches["K1"],
+                            "shapes": batch_launches["shapes"]}},
     }, {
         "name": "K1 backward (g_frames) ola_backward_frames",
         "route": "cuda",
@@ -2714,6 +2988,7 @@ def main() -> int:
         "library_ms": k2_timing["library_ms"],
         # the bundle's grid (the numbers above) and librosa_onset's
         "shapes": k2_timings,
+        "paths": {"batch": {"launches": batch_launches["K2"]}},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

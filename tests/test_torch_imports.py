@@ -83,6 +83,20 @@ def test_entry_point_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         separate_and_segment(input_uri=str(song), export_dir=str(tmp_path / "out"),
                              mode="vocal_separation", device="cuda")
+    # the batch entry point and its mesh likewise
+    from audio_cut_tpu_torch.api import separate_and_segment_batch
+    from audio_cut_tpu_torch.parallel.mesh import make_mesh
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            separate_and_segment_batch(input_uris=[str(song)], export_dir=str(tmp_path / "out"),
+                                       mode="vocal_separation", device=device)
+    for devices in (None, "cuda", ["cpu", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(devices)
+    assert make_mesh("cpu").devices == (torch.device("cpu"),)
+    with pytest.raises(NotImplementedError, match="Scale-out and shell"):
+        make_mesh(["cpu", "cpu"], dp=1, sp=2)
     assert not (tmp_path / "out").exists()
 
 
