@@ -1,10 +1,11 @@
 """Separation backends behind the engine.
 
 Counterpart of ``audio_cut_tpu/separation/backends.py``. ``make_backend``
-builds ``convtdf`` (the packaged ConvTDF) and ``spectral`` (the model-free
-harmonic-percussive mask, also the trainer's held-out yardstick); asking for
-``waveunet`` or ``onnx`` raises ``NotImplementedError`` naming its ROADMAP.md
-item. The spectral backend's median filters are elementwise min/max
+builds ``convtdf`` (the packaged ConvTDF), ``waveunet`` (the waveform U-Net,
+from the checkpoint ``train_separator --family waveunet`` writes) and
+``spectral`` (the model-free harmonic-percussive mask, also the trainer's
+held-out yardstick); asking for ``onnx`` raises ``NotImplementedError``
+naming its ROADMAP.md item. The spectral backend's median filters are elementwise min/max
 networks, as in the JAX package (plain array code there, no Pallas); its
 iSTFT ends in kernel K1.
 """
@@ -135,7 +136,6 @@ class SpectralMaskBackend:
 
 
 _NOT_PORTED = {
-    "waveunet": "other separator tiers (waveunet, onnx)",
     "onnx": "other separator tiers (waveunet, onnx)",
 }
 
@@ -160,7 +160,7 @@ def make_backend(name: str, sample_rate: int, device: torch.device):
         raise NotImplementedError(
             f"separation backend {name!r} is not in the PyTorch port yet: "
             f"ROADMAP.md, queue 1, '{_NOT_PORTED[name]}'")
-    if name not in ("convtdf", "spectral"):
+    if name not in ("convtdf", "waveunet", "spectral"):
         raise ValueError(f"unknown separation backend {name!r}")
     device = indexed(device)  # "cuda" and "cuda:0" are one card: one backend
     key = (name, int(sample_rate), str(device), _config_key(name))
@@ -168,6 +168,10 @@ def make_backend(name: str, sample_rate: int, device: torch.device):
     if backend is None:
         if name == "spectral":
             backend = SpectralMaskBackend(sample_rate)
+        elif name == "waveunet":
+            from audio_cut_tpu_torch.models.waveunet import WaveUNetBackend
+
+            backend = WaveUNetBackend(sample_rate, device)
         else:
             from audio_cut_tpu_torch.models.convtdf import ConvTDFBackend
 

@@ -6,10 +6,10 @@ windows, run through the backend in groups, and overlap-added on the device
 with the cross-fade/halo weights of ``ola_plan`` (the JAX package's
 ``_ola_graph``). The stems stay on the device; the host copies are lazy.
 
-A backend with a native geometry (``engine_geometry()``, the ConvTDF) gets
-engine windows equal to its model windows; one without (the spectral mask)
-takes the config schedule, ``device_pipeline.chunk_seconds`` /
-``overlap_seconds`` / ``halo_seconds`` / ``align_hop``, as in the JAX
+A backend with a native geometry (``engine_geometry()``: the ConvTDF and the
+WaveUNet) gets engine windows equal to its model windows; one without (the
+spectral mask) takes the config schedule, ``device_pipeline.chunk_seconds``
+/ ``overlap_seconds`` / ``halo_seconds`` / ``align_hop``, as in the JAX
 package.
 
 The JAX package's backend fallback chain is not carried, by design: there a

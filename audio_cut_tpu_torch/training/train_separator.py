@@ -1,4 +1,4 @@
-"""Train the ConvTDF separator on (mix, vocal) pairs.
+"""Train a separator (the ConvTDF, or the WaveUNet) on (mix, vocal) pairs.
 
     python -m audio_cut_tpu_torch.training.train_separator --data-dir pairs/ \\
         --steps 1000 --checkpoint convtdf.msgpack
@@ -6,6 +6,8 @@
         --steps 3 --device cpu                        # a few steps on the CPU
     python -m audio_cut_tpu_torch.training.train_separator --large --resume packaged \\
         --steps 20 --checkpoint tuned.msgpack         # fine-tune ConvTDF-large on the card
+    python -m audio_cut_tpu_torch.training.train_separator --family waveunet --bootstrap \\
+        --steps 1000 --checkpoint waveunet.msgpack    # the WaveUNet tier's weights
 
 Counterpart of ``scripts/train_separator.py``. Data: a directory of paired
 WAVs ``<name>_mix.wav`` / ``<name>_vocal.wav`` (equal length, 44.1 kHz mono),
@@ -14,10 +16,14 @@ WAVs ``<name>_mix.wav`` / ``<name>_vocal.wav`` (equal length, 44.1 kHz mono),
 It runs on CUDA unless ``--device cpu``; with no CUDA device and no
 ``--device cpu`` it raises.
 
-Not in the port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): ``--family waveunet`` and ``--rich``. The JAX script's
-``--probe-threshold-s`` timed a matmul to detect a degraded TPU attach and
-has no counterpart on the card.
+``--family waveunet`` trains the waveform U-Net (``training/wave_trainer.py``)
+at ``WAVEUNET_GEOMETRY`` (``--small``: ``WAVEUNET_SMALL_GEOMETRY``); the
+WaveUNet is fully convolutional over time, so its checkpoint serves at the
+config's ``window_samples`` and the sidecar pins only channels and depth.
+
+Not in the port yet: ``--rich`` (raises ``NotImplementedError`` naming its
+ROADMAP.md item). The JAX script's ``--probe-threshold-s`` timed a matmul
+to detect a degraded TPU attach and has no counterpart on the card.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from audio_cut_tpu_torch.models.convtdf import (
-    ConvTDFSeparator, load_checkpoint, packaged_checkpoint_path)
+from audio_cut_tpu_torch.models import convtdf, waveunet
+from audio_cut_tpu_torch.models.convtdf import ConvTDFSeparator
+from audio_cut_tpu_torch.models.waveunet import WaveUNetSeparator
 from audio_cut_tpu_torch.training.trainer import TrainConfig, Trainer
+from audio_cut_tpu_torch.training.wave_trainer import WaveTrainer
 from audio_cut_tpu_torch.utils.device import resolve_device
 
 SR = 44100
@@ -70,6 +78,12 @@ SMALL_GEOMETRY = dict(
     n_fft=512, hop=128, dim_f=128, dim_t=32,
     channels=8, depth=2, tdf_bottleneck=16,
 )
+
+# the WaveUNet's training window is shorter than its serving window (the
+# config's window_samples, 262144): the net is fully convolutional over T;
+# channels and depth are what the sidecar records
+WAVEUNET_GEOMETRY = dict(window_samples=65536, channels=24, depth=4)
+WAVEUNET_SMALL_GEOMETRY = dict(window_samples=16384, channels=8, depth=3)
 
 
 def iter_batches(data_dir, window: int, batch: int, rng: np.random.Generator):
@@ -117,10 +131,10 @@ def synthetic_batches(window: int, batch: int, rng: np.random.Generator):
         yield vocals + beds, vocals
 
 
-def evaluate_si_snr(sep: ConvTDFSeparator, device: torch.device, n_pairs: int = 6,
-                    seed: int = 1234):
-    """Held-out synthetic eval: SI-SNR (dB) of the ConvTDF vocal estimate and
-    of the model-free spectral-mask backend on the same mixtures."""
+def evaluate_si_snr(sep, device: torch.device, n_pairs: int = 6, seed: int = 1234):
+    """Held-out synthetic eval: SI-SNR (dB) of the separator's vocal estimate
+    (a ``ConvTDFSeparator`` or a ``WaveUNetSeparator``) and of the model-free
+    spectral-mask backend on the same mixtures."""
     from audio_cut_tpu_torch.separation.backends import SpectralMaskBackend
     from audio_cut_tpu_torch.training.sep_data import si_snr, synth_pair
 
@@ -168,7 +182,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--rich", action="store_true",
                     help="widened timbre families (not in the PyTorch port yet)")
     ap.add_argument("--family", choices=("convtdf", "waveunet"), default="convtdf",
-                    help="separator family (only convtdf in the PyTorch port yet)")
+                    help="separator family: the spectrogram mask net (default) or the "
+                         "waveform U-Net tier")
     ap.add_argument("--datagen-threads", type=int, default=2,
                     help="producer threads for the synthetic stem generator "
                          "(training/prefetch.py); 0 disables prefetch")
@@ -189,10 +204,6 @@ def main(argv: Optional[Sequence[str]] = None, report: Optional[Dict[str, Any]] 
     one dict per step (its metrics, ``wait_s`` for the batch, ``step_s``),
     the loop's wall seconds and the held-out SI-SNR pair."""
     args = _parser().parse_args(argv)
-    if args.family == "waveunet":
-        raise NotImplementedError(
-            "--family waveunet is not in the PyTorch port yet: ROADMAP.md, queue 1, "
-            "'Other separator tiers' (models/waveunet.py) and 'Training' (wave_trainer.py)")
     if args.rich:
         raise NotImplementedError(
             "--rich (training/rich_data.py) is not in the PyTorch port yet: ROADMAP.md, "
@@ -203,23 +214,31 @@ def main(argv: Optional[Sequence[str]] = None, report: Optional[Dict[str, Any]] 
     if args.pause_weight is not None:
         cfg_kwargs["pause_loss_weight"] = args.pause_weight
     train_cfg = TrainConfig(**cfg_kwargs)
-    if args.small:
-        geometry = SMALL_GEOMETRY
-    elif args.tiny:
-        geometry = TINY_GEOMETRY
-    elif args.large:
-        geometry = LARGE_GEOMETRY
-    elif args.bootstrap:
-        geometry = BOOTSTRAP_GEOMETRY
+    generator = torch.Generator().manual_seed(0)
+    if args.family == "waveunet":
+        family = waveunet
+        geometry = WAVEUNET_SMALL_GEOMETRY if args.small else WAVEUNET_GEOMETRY
+        sep = WaveUNetSeparator(SR, **geometry)
+        trainer = WaveTrainer(sep, train_cfg, generator=generator, device=device)
     else:
-        geometry = {}
-    sep = ConvTDFSeparator(SR, **geometry)
-    trainer = Trainer(sep, train_cfg, generator=torch.Generator().manual_seed(0), device=device)
+        family = convtdf
+        if args.small:
+            geometry = SMALL_GEOMETRY
+        elif args.tiny:
+            geometry = TINY_GEOMETRY
+        elif args.large:
+            geometry = LARGE_GEOMETRY
+        elif args.bootstrap:
+            geometry = BOOTSTRAP_GEOMETRY
+        else:
+            geometry = {}
+        sep = ConvTDFSeparator(SR, **geometry)
+        trainer = Trainer(sep, train_cfg, generator=generator, device=device)
     if args.resume:
-        src = packaged_checkpoint_path() if args.resume == "packaged" else args.resume
+        src = family.packaged_checkpoint_path() if args.resume == "packaged" else args.resume
         if not src:
             raise SystemExit("--resume packaged: no packaged checkpoint found")
-        trainer.load_params(load_checkpoint(str(src)))
+        trainer.load_params(family.load_checkpoint(str(src)))
         print(f"resumed params from {src}", flush=True)
 
     generated = args.bootstrap or args.tiny or args.large
@@ -286,7 +305,7 @@ def main(argv: Optional[Sequence[str]] = None, report: Optional[Dict[str, Any]] 
 
     if generated:
         eval_sep = sep
-        if args.tiny:
+        if args.tiny and args.family == "convtdf":
             # evaluate at the SERVING window: the tiny training window
             # (0.37 s) often holds no vocal at all, which makes SI-SNR meaningless
             eval_sep = ConvTDFSeparator(SR, **{**TINY_GEOMETRY, "dim_t": TINY_SERVING_DIM_T})
@@ -301,7 +320,11 @@ def main(argv: Optional[Sequence[str]] = None, report: Optional[Dict[str, Any]] 
         ckpt_path = Path(args.checkpoint).expanduser().resolve()
         trainer.save_checkpoint(str(ckpt_path))
         if generated:
-            if args.tiny:
+            if args.family == "waveunet":
+                # fully convolutional over T: the serving window stays the
+                # config's window_samples; the sidecar pins only the net
+                meta = {"channels": sep.net.channels, "depth": sep.net.depth}
+            elif args.tiny:
                 # the tiny sidecar pins the serving window too
                 meta = {k: v for k, v in TINY_GEOMETRY.items() if k != "dim_t"}
                 meta["dim_t"] = TINY_SERVING_DIM_T
@@ -313,8 +336,8 @@ def main(argv: Optional[Sequence[str]] = None, report: Optional[Dict[str, Any]] 
                 json.dump(meta, f, indent=1)
             print(f"geometry sidecar saved: {ckpt_path}.json")
         print(f"checkpoint saved: {args.checkpoint}")
-        print("activate with runtime override: enhanced_separation.backend=convtdf, "
-              f"enhanced_separation.convtdf.checkpoint={args.checkpoint}")
+        print(f"activate with runtime override: enhanced_separation.backend={args.family}, "
+              f"enhanced_separation.{args.family}.checkpoint={args.checkpoint}")
     return 0
 
 

@@ -162,8 +162,15 @@ class Trainer:
         self.params = list(sep.net.parameters())
         self.optimizer = make_optimizer(self.cfg)
         self.opt_state = self.optimizer.init(self.params)
-        self._loss_fn = make_loss_fn(sep, self.cfg)
+        self._loss_fn = self._make_loss_fn()
         self.step_count = 0
+
+    def _make_loss_fn(self):
+        return make_loss_fn(self.sep, self.cfg)
+
+    def _flax_params(self) -> Dict:
+        """The net's parameters as the flax tree the checkpoint holds."""
+        return to_flax_params(self.sep.net.state_dict())
 
     def load_params(self, state: Dict[str, torch.Tensor]) -> None:
         """Start from these parameters (a ``ConvTDFNet`` state_dict); the
@@ -197,4 +204,4 @@ class Trainer:
                 "only (orbax directories: ROADMAP.md, queue 1, 'Other separator tiers')")
         from audio_cut_tpu_torch.models.flax_msgpack import write_flax_msgpack
 
-        Path(path).write_bytes(write_flax_msgpack(to_flax_params(self.sep.net.state_dict())))
+        Path(path).write_bytes(write_flax_msgpack(self._flax_params()))

@@ -184,7 +184,29 @@
     card and on the CPU from the same weights and batch: the loss and the
     global gradient norm within ``STEP_RTOL`` and every leaf's gradients at
     cosine >= ``STEP_MIN_COS``;
-12. holds K1W (``csrc/ola.cu``, the window's gradient: one launch that
+12. drives the WaveUNet tier (``models/waveunet.py``, window 262144,
+    channels 24, depth 4, bfloat16 activations on float32 parameters):
+    trains it through ``train_separator.main(["--family", "waveunet",
+    "--bootstrap", ...])``, ``WAVEUNET_STEPS`` steps at batch 4, with K0 1
+    and K1 one per held-out pair (the spectral yardstick; the WaveUNet runs
+    none of the port's kernels), finite losses, the msgpack and its sidecar
+    ``{"channels": 24, "depth": 4}``, read back equal to the trained
+    parameters, and prints the warm steps' median and trained audio-s per
+    wall-s; profiles one more step; holds one float32 train step at the ``--small`` geometry card
+    against CPU (``STEP_RTOL``, ``STEP_MIN_COS``); then serves that
+    checkpoint (``enhanced_separation.backend: waveunet``) through
+    ``separate_and_segment()`` with no mode, cold then warm, and
+    ``mode="vocal_separation"`` once: backend waveunet on cuda, 11 windows
+    in 6 pieces (``expected_pass(..., "waveunet", ...)``), K1 0 and K2 1 in
+    each v2.2_mdd call and 0 in vocal_separation, K0 once in the phase, the
+    device stems summing to the mix within ``WAVEUNET_SUM_ATOL``, the exact
+    splice (one segment allowed: 20 steps leave the stem without clean
+    pauses), each call's wall, audio-s per wall-s and peak memory printed;
+    the warm v2.2_mdd call's cuts against a ``device="cpu"`` call on the
+    same checkpoint (same count, each within one dB-grid stride); one map group of 4 windows through the backend, card (bf16) against CPU
+    (float32), at SNR >= ``WAVEUNET_GROUP_SNR_DB``; and one more warm call
+    profiled;
+13. holds K1W (``csrc/ola.cu``, the window's gradient: one launch that
     reduces the rows across a thread-block cluster) at its edge shapes
     (``K1W_EDGE_SHAPES`` of ``audio_cut_tpu_torch/testing.py``, which the
     card tests share: one frame, fewer rows than its cluster, rows its
@@ -198,12 +220,12 @@
     not counted in their peak memory. Its two other checks run right after
     4, before any serving phase (``check_k1w_profile``): two launches give
     the same bits, and one profiled call runs one device kernel;
-13. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
+14. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
     calls'; its entry also lists its times at every timed shape under
     ``shapes``, the piece's first, K2's at the
     bundle's grid and librosa_onset's; under ``paths`` K1's launches and
     shapes in the shifts phase's two calls and in the batch, and K2's in the
-    batch) and, last,
+    batch and in the WaveUNet phase) and, last,
     ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
@@ -348,6 +370,11 @@ SHIFTS = {"enhanced_separation.convtdf.shifts": 2}
 BATCH_SHORT_S = 40.0
 # the batch's stems against single engine runs (max |diff|)
 BATCH_STEM_ATOL = 1e-5
+# the WaveUNet phase: the served checkpoint comes from the trainer, which
+# refuses to save below min(50, steps) steps, so 20 steps save
+WAVEUNET_STEPS = 20
+WAVEUNET_GROUP_SNR_DB = 30.0  # one map group of 4 windows, card bf16 vs CPU f32
+WAVEUNET_SUM_ATOL = 1e-5  # |vocal + instrumental - mix| on the card: float32 sums of the OLA
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -1109,9 +1136,10 @@ class _K1Rows:
         return out
 
 
-def check_segments(m, out: Path, audio) -> None:
-    """success, >= 2 segments labelled human/music, and the exported mix
-    segments splice back to the PCM-24 encoding of the input exactly."""
+def check_segments(m, out: Path, audio, min_segments: int = 2) -> None:
+    """success, >= ``min_segments`` segments labelled human/music, and the
+    exported mix segments splice back to the PCM-24 encoding of the input
+    exactly."""
     import numpy as np
 
     from audio_cut_tpu_torch.io import read_wav
@@ -1120,8 +1148,8 @@ def check_segments(m, out: Path, audio) -> None:
     if not m["success"]:
         fail(f"separate_and_segment reported failure: {m}")
     labels = [s["label"] for s in m["segments"]]
-    if len(labels) < 2 or not set(labels) <= {"human", "music"}:
-        fail(f"segments {labels}: expected >= 2 labelled human or music")
+    if len(labels) < min_segments or not set(labels) <= {"human", "music"}:
+        fail(f"segments {labels}: expected >= {min_segments} labelled human or music")
     parts = [read_wav(out / s["mix_path"])[0] for s in m["segments"]]
     spliced = np.concatenate(parts)
     if not np.array_equal(spliced, decode_pcm24(encode_pcm24(audio))):
@@ -1155,9 +1183,11 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     the ConvTDF, ``WINDOW_GROUP`` of the spectral mask), one K1 launch each.
     Under ``enhanced_separation.convtdf.shifts`` s > 1 a ConvTDF forward
     takes ``map_group // s`` windows and sends windows x s rows through K1.
-    Returns the windows, the piece sizes, K1's launches and the rows of each,
-    the largest batch K1 sees, and the manifest labels of the fused pass and
-    of the engine."""
+    The WaveUNet (``backend="waveunet"``, its checkpoint in ``overrides``)
+    runs ``map_group`` windows a forward with no iSTFT, so K1 launches 0
+    times. Returns the windows, the piece sizes, the forwards, K1's launches
+    and the rows of each, the largest batch a forward sees, and the manifest
+    labels of the fused pass and of the engine."""
     import math
 
     from audio_cut_tpu_torch.config import get_config
@@ -1172,7 +1202,12 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
         return (overrides or {}).get(f"{section}.{name}", get_config(f"{section}.{name}"))
 
     shifts = 1
-    if backend == "convtdf":
+    if backend == "waveunet":
+        model = _backend_under(overrides, "waveunet")
+        g = model.engine_geometry()
+        geometry = (g["chunk_s"], g["overlap_s"], g["halo_s"], int(g["align"]))
+        group = model.map_group
+    elif backend == "convtdf":
         # the main path's own backend (cached after its first call); its model
         # window is the engine window
         model = make_backend("convtdf", SR, "cuda")
@@ -1194,9 +1229,11 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
         fused, engine = f"fused_pipelined_p{len(sizes)}", f"device_ola_pipelined_p{len(sizes)}"
     else:
         sizes, fused, engine = [windows], "fused_single_program", "device_ola"
-    rows = [min(group, k - j) * shifts for k in sizes for j in range(0, k, group)]
-    out = {"windows": windows, "window": window, "sizes": sizes, "k1": len(rows),
-           "rows": rows, "batch": max(rows), "fused": fused, "engine": engine}
+    forwards = [min(group, k - j) * shifts for k in sizes for j in range(0, k, group)]
+    rows = [] if backend == "waveunet" else forwards
+    out = {"windows": windows, "window": window, "sizes": sizes, "forwards": len(forwards),
+           "k1": len(rows), "rows": rows, "batch": max(forwards), "fused": fused,
+           "engine": engine}
     _EXPECTED[key] = out
     return out
 
@@ -2278,10 +2315,7 @@ def bundle_parity(torch, dev, warm, audio):
 
 def run_separation(torch, dev, work: Path, audio):
     """The first slice's path, once: mode="vocal_separation" on the card."""
-    import numpy as np
-
     from audio_cut_tpu_torch import separate_and_segment
-    from audio_cut_tpu_torch.io import read_wav, wav_info
 
     K1 = reset_counts()["K1"]  # this path starts: only its launches count
     t0 = time.perf_counter()
@@ -2297,23 +2331,33 @@ def run_separation(torch, dev, work: Path, audio):
             or K1.launches != want["k1"]):
         fail(f"vocal_separation: K1 {K1.launches}, gpu {m['gpu']}; expected K1 {want['k1']} on "
              f"cuda, {want['engine']}")
+    check_stems("vocal_separation", m, work / "sep", audio)
+
+
+def check_stems(tag: str, m, out: Path, audio) -> None:
+    """The exported stems of a vocal_separation call: 24-bit, the input's
+    length, finite, and summing to the mix within 2.5 steps of PCM-24."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.io import read_wav, wav_info
+
     stems = []
     for key in ("vocal_full", "instrumental_full"):
-        info = wav_info(work / "sep" / m["artifacts"][key])
-        x, sr = read_wav(work / "sep" / m["artifacts"][key])
+        info = wav_info(out / m["artifacts"][key])
+        x, sr = read_wav(out / m["artifacts"][key])
         if info.bits_per_sample != 24 or sr != SR or x.shape != audio.shape:
-            fail(f"{key}: {info} shape {x.shape}, expected 24-bit {audio.shape}")
+            fail(f"{tag}: {key}: {info} shape {x.shape}, expected 24-bit {audio.shape}")
         if not np.isfinite(x).all():
-            fail(f"{key} is not finite")
+            fail(f"{tag}: {key} is not finite")
         stems.append(x)
     err = float(np.abs(stems[0].astype(np.float64) + stems[1] - audio).max())
     if err > 2.5 / 8388607.0:
-        fail(f"vocal + instrumental differs from the mix by {err}")
-    print(f"vocal_separation: stems 24-bit x {audio.size} samples, finite, "
+        fail(f"{tag}: vocal + instrumental differs from the mix by {err}")
+    print(f"{tag}: stems 24-bit x {audio.size} samples, finite, "
           f"|vocal + instrumental - mix| <= {err:.3e}")
 
-def _backend_under(overrides: Optional[dict]):
-    """The ConvTDF backend the entry points use under ``overrides`` (the
+def _backend_under(overrides: Optional[dict], name: str = "convtdf"):
+    """The ``name`` backend the entry points use under ``overrides`` (the
     backend cache's instance: they ask for "cuda", and the cache keeps the
     backends of this script's configurations without dropping one)."""
     from audio_cut_tpu_torch.config import get_config_manager
@@ -2325,7 +2369,7 @@ def _backend_under(overrides: Optional[dict]):
     try:
         for key, value in (overrides or {}).items():
             set_nested(mgr.config, key, value)
-        return make_backend("convtdf", SR, "cuda")
+        return make_backend(name, SR, "cuda")
     finally:
         mgr.restore(snapshot)
 
@@ -2652,11 +2696,32 @@ def report_profile(torch, prof, wall_ms: float, name: str, spans_of=SPANS):
     return kernels, busy_ms
 
 
+def print_steps(tag: str, steps, window: int, peak: int) -> None:
+    """The first step, the warm steps' (3 on) median and spread, the share of
+    the loop spent waiting for a batch, the trained audio-s per wall-s and
+    the peak memory of a run of ``TRAIN_BATCH`` x ``window`` samples a step."""
+    import statistics
+
+    audio_per_step = TRAIN_BATCH * window / SR
+    warm = steps[2:]
+    step_ms = [s["step_s"] * 1e3 for s in warm]
+    busy = sum(s["step_s"] + s["wait_s"] for s in warm)
+    waited = sum(s["wait_s"] for s in warm)
+    q = statistics.quantiles(step_ms, n=4)
+    print(f"{tag}: first step {steps[0]['step_s'] * 1e3:.1f} ms (waited {steps[0]['wait_s'] * 1e3:.1f} ms "
+          f"for its batch); warm steps 3-{len(steps)}: median {statistics.median(step_ms):.2f} ms "
+          f"per step (min {min(step_ms):.2f}, quartiles {q[0]:.2f} / {q[2]:.2f}, max "
+          f"{max(step_ms):.2f}); waiting for a batch {waited / busy:.3f} of the loop "
+          f"(median wait {statistics.median(s['wait_s'] for s in warm) * 1e3:.2f} ms)")
+    print(f"{tag}: {audio_per_step:.4f} audio-s per step (batch {TRAIN_BATCH} x {window} samples); "
+          f"warm steps: {audio_per_step * len(warm) / busy:.2f} trained audio-s per wall-s; "
+          f"torch.cuda.max_memory_allocated = {peak} bytes")
+
+
 def run_training(torch, dev, work: Path):
     """The training slice through its entry point, with every launch count
     set to 0 just before it. Returns (launches, the run's report, checkpoint)."""
     import math
-    import statistics
 
     from audio_cut_tpu_torch.models.convtdf import load_checkpoint, packaged_checkpoint_path
     from audio_cut_tpu_torch.training import train_separator
@@ -2698,21 +2763,7 @@ def run_training(torch, dev, work: Path):
           f"{max(moved.values()):.3e}")
     if still:
         fail(f"parameters that did not move: {still}")
-    sep = trainer.sep
-    audio_per_step = TRAIN_BATCH * sep.window_samples / SR
-    warm = steps[2:]
-    step_ms = [s["step_s"] * 1e3 for s in warm]
-    busy = sum(s["step_s"] + s["wait_s"] for s in warm)
-    waited = sum(s["wait_s"] for s in warm)
-    q = statistics.quantiles(step_ms, n=4)
-    print(f"training: first step {steps[0]['step_s'] * 1e3:.1f} ms (waited {steps[0]['wait_s'] * 1e3:.1f} ms "
-          f"for its batch); warm steps 3-{TRAIN_STEPS}: median {statistics.median(step_ms):.2f} ms "
-          f"per step (min {min(step_ms):.2f}, quartiles {q[0]:.2f} / {q[2]:.2f}, max "
-          f"{max(step_ms):.2f}); waiting for a batch {waited / busy:.3f} of the loop "
-          f"(median wait {statistics.median(s['wait_s'] for s in warm) * 1e3:.2f} ms)")
-    print(f"training: {audio_per_step:.4f} audio-s per step (batch {TRAIN_BATCH} x {sep.window_samples} samples); "
-          f"warm steps: {audio_per_step * len(warm) / busy:.2f} trained audio-s per wall-s; "
-          f"torch.cuda.max_memory_allocated = {peak} bytes")
+    print_steps("training", steps, trainer.sep.window_samples, peak)
     if report["eval"] is None:
         fail("the held-out SI-SNR did not run")
     print(f"training: held-out SI-SNR on {TRAIN_EVAL_PAIRS} pairs: convtdf {report['eval'][0]:.2f} dB, "
@@ -2751,10 +2802,10 @@ def serve_checkpoint(torch, dev, trainer, ckpt: Path, audio) -> None:
         fail(f"the written checkpoint does not serve what the trained net computes: {err}")
 
 
-def profile_step(torch, trainer) -> None:
+def profile_step(torch, trainer, tag: str = "profile step") -> None:
     """One more train step under torch.profiler: where its time goes, by the
     trainer's spans (host time, and the card's busy time and launches in
-    the range each span's kernels cover)."""
+    the range each span's kernels cover), printed under ``tag``."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2771,29 +2822,73 @@ def profile_step(torch, trainer) -> None:
     for e in events:
         if e.name in STEP_SPANS and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    print(f"profile step (one warm train step under torch.profiler): wall {wall_ms:.1f} ms; host "
+    print(f"{tag} (one warm train step under torch.profiler): wall {wall_ms:.1f} ms; host "
           f"spans (ms): " + ", ".join(f"{k} {spans.get(k, float('nan')):.1f}" for k in STEP_SPANS))
     on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in on_card
               if e.name in STEP_SPANS}
     kernels = [e for e in on_card if e.name not in STEP_SPANS]
     if not kernels:
-        print("profile step: device busy time not measured (the profiler recorded nothing on the card)")
+        print(f"{tag}: device busy time not measured (the profiler recorded nothing on the card)")
         return
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    print(f"profile step: card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall (idle share "
+    print(f"{tag}: card busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall (idle share "
           f"{1 - busy_ms / wall_ms:.3f}), {len(kernels)} kernels and copies on the card")
-    _print_top("step: ", kernels, 14)
+    _print_top(f"{tag}: ", kernels, 14)
     for span, (a, b) in sorted(ranges.items(), key=lambda kv: kv[1]):
         inside = [e for e in kernels if a <= e.time_range.start and e.time_range.end <= b]
         busy = _union_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e3
-        print(f"profile step: span {span} on the card: {(b - a) / 1e3:.1f} ms from its first "
+        print(f"{tag}: span {span} on the card: {(b - a) / 1e3:.1f} ms from its first "
               f"kernel to its last, {busy:.1f} ms busy, {len(inside)} kernels and copies")
     for label, key in (("host-to-device copies", "Memcpy HtoD"), ("K1 forward", "windowed_ola_kernel"),
                        ("K1B", "ola_backward_frames_kernel")):
         per = [(e.time_range.end - e.time_range.start) / 1e3 for e in kernels if key in e.name]
-        print(f"profile step: {label}: {len(per)} events, {sum(per):.4f} ms in all "
+        print(f"{tag}: {label}: {len(per)} events, {sum(per):.4f} ms in all "
               f"({', '.join(f'{ms:.4f}' for ms in per[:8])})")
+
+
+def step_parity(torch, dev, build, make_loss, mix, vocal) -> dict:
+    """One float32 loss and gradient, card against CPU: ``build()`` makes the
+    separator (the same weights each time), ``make_loss(sep, TrainConfig())``
+    its loss, on the batch (``mix``, ``vocal``). Returns the losses, the
+    global gradient norms, their relative differences, the lowest and the
+    median per-leaf cosine, and each side's seconds."""
+    from audio_cut_tpu_torch.training.trainer import TrainConfig
+
+    out = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sep = build()
+        sep.to(d)
+        names, params = zip(*sep.net.named_parameters())
+        t0 = time.perf_counter()
+        loss, _ = make_loss(sep, TrainConfig())(torch.from_numpy(mix).to(d),
+                                                torch.from_numpy(vocal).to(d))
+        grads = torch.autograd.grad(loss, params)
+        grads = [g.double().cpu() for g in grads]
+        out[side] = (float(loss.detach()), grads, time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    norm = {side: float(torch.sqrt(sum((g * g).sum() for g in out[side][1]))) for side in out}
+    cos = []
+    for name, a, b in zip(names, g_card, g_cpu):
+        na, nb = float(a.norm()), float(b.norm())
+        cos.append((1.0 if na == nb == 0.0 else float((a * b).sum()) / max(na * nb, 1e-300), name))
+    return {"loss": (l_card, l_cpu), "norm": (norm["card"], norm["cpu"]),
+            "rel_loss": abs(l_card - l_cpu) / abs(l_cpu),
+            "rel_norm": abs(norm["card"] - norm["cpu"]) / norm["cpu"],
+            "worst": min(cos), "median_cos": sorted(c for c, _ in cos)[len(cos) // 2],
+            "seconds": (s_card, s_cpu)}
+
+
+def _parity_line(r: dict) -> str:
+    return (f"loss {r['loss'][0]:.6f} vs {r['loss'][1]:.6f} (rel {r['rel_loss']:.3e}), global "
+            f"gradient norm {r['norm'][0]:.6f} vs {r['norm'][1]:.6f} (rel {r['rel_norm']:.3e}); "
+            f"bounds rtol {STEP_RTOL}; lowest per-leaf cosine {r['worst'][0]:.6f} "
+            f"({r['worst'][1]}; bound {STEP_MIN_COS}); median cosine {r['median_cos']:.6f}; "
+            f"card {r['seconds'][0]:.2f} s, CPU {r['seconds'][1]:.2f} s")
+
+
+def _parity_holds(r: dict) -> bool:
+    return r["rel_loss"] <= STEP_RTOL and r["rel_norm"] <= STEP_RTOL and r["worst"][0] >= STEP_MIN_COS
 
 
 def card_vs_cpu_step(torch, dev) -> None:
@@ -2806,44 +2901,239 @@ def card_vs_cpu_step(torch, dev) -> None:
     from audio_cut_tpu_torch.ops.ola import K1B
     from audio_cut_tpu_torch.training.sep_data import synth_pair
     from audio_cut_tpu_torch.training.train_separator import LARGE_GEOMETRY
-    from audio_cut_tpu_torch.training.trainer import TrainConfig, make_loss_fn
+    from audio_cut_tpu_torch.training.trainer import make_loss_fn
 
     state = load_checkpoint(packaged_checkpoint_path())
     geometry = {**LARGE_GEOMETRY, "dim_t": 32}
-    sep = ConvTDFSeparator(SR, **geometry, dtype=torch.float32)
-    mix, vocal = synth_pair(np.random.default_rng(21), sep.window_samples)
-    out = {}
-    b0 = K1B.launches
-    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+
+    def build():
         sep = ConvTDFSeparator(SR, **geometry, dtype=torch.float32)
         sep.net.load_state_dict(state)
-        sep.to(d)
-        names, params = zip(*sep.net.named_parameters())
-        t0 = time.perf_counter()
-        loss, metrics = make_loss_fn(sep, TrainConfig())(torch.from_numpy(mix)[None].to(d),
-                                                         torch.from_numpy(vocal)[None].to(d))
-        grads = torch.autograd.grad(loss, params)
-        grads = [g.double().cpu() for g in grads]
-        out[side] = (float(loss.detach()), grads, time.perf_counter() - t0)
-    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
-    norm = {side: float(torch.sqrt(sum((g * g).sum() for g in out[side][1]))) for side in out}
-    cos = []
-    for name, a, b in zip(names, g_card, g_cpu):
-        na, nb = float(a.norm()), float(b.norm())
-        cos.append((1.0 if na == nb == 0.0 else float((a * b).sum()) / max(na * nb, 1e-300), name))
-    worst = min(cos)
-    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
-    rel_norm = abs(norm["card"] - norm["cpu"]) / norm["cpu"]
+        return sep
+
+    window = build().window_samples
+    mix, vocal = synth_pair(np.random.default_rng(21), window)
+    b0 = K1B.launches
+    r = step_parity(torch, dev, build, make_loss_fn, mix[None], vocal[None])
     print(f"card vs CPU, one float32 train step of ConvTDF-large (dim_t 32, batch 1, "
-          f"{sep.window_samples} samples; K1B launches on the card {K1B.launches - b0}): loss "
-          f"{l_card:.6f} vs {l_cpu:.6f} (rel {rel_loss:.3e}), global gradient norm "
-          f"{norm['card']:.6f} vs {norm['cpu']:.6f} (rel {rel_norm:.3e}); bounds rtol {STEP_RTOL}; "
-          f"lowest per-leaf cosine {worst[0]:.6f} ({worst[1]}; bound {STEP_MIN_COS}); median "
-          f"cosine {sorted(c for c, _ in cos)[len(cos) // 2]:.6f}; card {s_card:.2f} s, CPU {s_cpu:.2f} s")
+          f"{window} samples; K1B launches on the card {K1B.launches - b0}): {_parity_line(r)}")
     if K1B.launches - b0 != 1:
         fail("the card's train step did not launch K1B once")
-    if not (rel_loss <= STEP_RTOL and rel_norm <= STEP_RTOL and worst[0] >= STEP_MIN_COS):
+    if not _parity_holds(r):
         fail("the card's float32 train step disagrees with the CPU's")
+
+
+def train_waveunet(torch, dev, work: Path):
+    """The WaveUNet's trainer through its entry point, with every launch
+    count set to 0 just before it: ``--family waveunet --bootstrap``,
+    ``WAVEUNET_STEPS`` steps at batch 4, the held-out SI-SNR on 2 pairs and a
+    checkpoint. Every loss finite; the launches K0 1 and K1 one per held-out
+    pair (the spectral yardstick's iSTFT: the WaveUNet's loss and forward run
+    no kernel of the port); the msgpack and its sidecar ({"channels": 24,
+    "depth": 4}) written, and the checkpoint read back equal to the trained
+    parameters. Returns the checkpoint's path and the trainer."""
+    import math
+
+    from audio_cut_tpu_torch.models.waveunet import load_checkpoint
+    from audio_cut_tpu_torch.training import train_separator
+
+    ckpt = work / "waveunet" / "waveunet.msgpack"
+    ckpt.parent.mkdir()
+    argv = ["--family", "waveunet", "--bootstrap", "--steps", str(WAVEUNET_STEPS),
+            "--batch", str(TRAIN_BATCH), "--eval-pairs", str(TRAIN_EVAL_PAIRS),
+            "--checkpoint", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = reset_counts()  # the WaveUNet's training starts: only its launches count
+    report = {}
+    print(f"waveunet training: train_separator.main({argv})", flush=True)
+    t0 = time.perf_counter()
+    rc = train_separator.main(argv, report=report)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if rc != 0:
+        fail(f"train_separator.main --family waveunet returned {rc}")
+    steps = report["steps"]
+    want = {"K0": 1, "K1": TRAIN_EVAL_PAIRS, "K1B": 0, "K1W": 0, "K2": 0}
+    print(f"waveunet training: {len(steps)} steps in {wall:.3f} s wall (main, with the held-out "
+          f"eval and the checkpoint); launches {launches}, expected {want}")
+    if launches != want or len(steps) != WAVEUNET_STEPS:
+        fail(f"the WaveUNet training ran {len(steps)} steps and launched {launches}; expected "
+             f"{WAVEUNET_STEPS} and {want}")
+    if not all(math.isfinite(st[k]) for st in steps for k in ("loss", "spec_l1", "wave_l1",
+                                                               "pause_rms")):
+        fail("the WaveUNet training gave a non-finite loss")
+    print("waveunet training: losses " + ", ".join(f"{st['loss']:.4f}" for st in steps))
+    trainer = report["trainer"]
+    sep = trainer.sep
+    print(f"waveunet training: window {sep.window_samples}, channels {sep.net.channels}, depth "
+          f"{sep.net.depth}, {sum(p.numel() for p in sep.net.parameters())} parameters, "
+          f"activations {sep.net.dtype}, on {next(sep.net.parameters()).device}")
+    print_steps("waveunet training", steps, sep.window_samples, peak)
+    print(f"waveunet training: held-out SI-SNR on {TRAIN_EVAL_PAIRS} pairs: waveunet "
+          f"{report['eval'][0]:.2f} dB, spectral {report['eval'][1]:.2f} dB")
+    sidecar = Path(str(ckpt) + ".json")
+    if not (ckpt.exists() and sidecar.exists()):
+        fail("the WaveUNet checkpoint or its geometry sidecar was not written")
+    meta = json.loads(sidecar.read_text())
+    if meta != {"channels": 24, "depth": 4}:
+        fail(f"the WaveUNet sidecar holds {meta}")
+    state, trained = load_checkpoint(str(ckpt)), sep.net.state_dict()
+    if state.keys() != trained.keys() or not all(torch.equal(state[k], trained[k].cpu())
+                                                 for k in state):
+        fail("the WaveUNet checkpoint does not read back as the trained parameters")
+    print(f"waveunet training: {ckpt.name} ({ckpt.stat().st_size} bytes) and its sidecar {meta} "
+          "written; read back equal to the trained parameters")
+    return ckpt, trainer
+
+
+def waveunet_step_parity(torch, dev) -> None:
+    """One float32 train step of the WaveUNet at the ``--small`` geometry
+    (window 16384, channels 8, depth 3, batch 2), card against CPU, from one
+    seeded initialisation and one synthetic batch: the loss and the global
+    gradient norm within ``STEP_RTOL``, every leaf's gradients at cosine >=
+    ``STEP_MIN_COS``."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.models.waveunet import WaveUNetSeparator
+    from audio_cut_tpu_torch.training.sep_data import synth_batches
+    from audio_cut_tpu_torch.training.train_separator import WAVEUNET_SMALL_GEOMETRY
+    from audio_cut_tpu_torch.training.wave_trainer import make_wave_loss_fn
+
+    def build():
+        sep = WaveUNetSeparator(SR, **WAVEUNET_SMALL_GEOMETRY, dtype=torch.float32)
+        sep.init_params(torch.Generator().manual_seed(0))
+        return sep
+
+    mix, vocal = next(synth_batches(WAVEUNET_SMALL_GEOMETRY["window_samples"], 2,
+                                    np.random.default_rng(23)))
+    r = step_parity(torch, dev, build, make_wave_loss_fn, mix, vocal)
+    print(f"card vs CPU, one float32 train step of the WaveUNet at --small "
+          f"({WAVEUNET_SMALL_GEOMETRY}, batch 2): {_parity_line(r)}")
+    if not _parity_holds(r):
+        fail("the card's float32 WaveUNet train step disagrees with the CPU's")
+
+
+def serve_waveunet(torch, dev, work: Path, audio, ckpt: Path) -> int:
+    """The WaveUNet tier served from the trained checkpoint
+    (``enhanced_separation.backend: waveunet``): ``separate_and_segment()``
+    with no mode and no device, cold then warm, then
+    ``mode="vocal_separation"`` once, every count set to 0 just before. Each
+    call reports backend ``waveunet`` on cuda and runs the 11 engine windows
+    at 262144 samples (window, channels and depth of the backend) in the 6
+    pieces that ``expected_pass`` computes, launching K1 0 times and K2 once
+    in v2.2_mdd (0 in vocal_separation), K0 once in the phase; the v2.2_mdd
+    calls' device stems sum to their mix within ``WAVEUNET_SUM_ATOL`` and
+    their segments splice back exactly; the vocal_separation stems are
+    checked by ``check_stems``. Then the warm v2.2_mdd call's cuts against
+    a ``device="cpu"`` call on the same checkpoint: the same count, each
+    within one dB-grid stride. Then one map group of 4 windows through the
+    backend on the card (bf16) and on the CPU (float32) at SNR >=
+    ``WAVEUNET_GROUP_SNR_DB``, and one more warm call profiled. Returns K2's
+    launches in the phase."""
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.analysis.bundle import DB_STRIDE
+    from audio_cut_tpu_torch.models.waveunet import NATIVE_WINDOW, WaveUNetSeparator
+    from audio_cut_tpu_torch.separation import fused
+
+    overrides = {"enhanced_separation.backend": "waveunet",
+                 "enhanced_separation.waveunet.checkpoint": str(ckpt)}
+    want = expected_pass(audio.size, "waveunet", overrides)
+    backend = _backend_under(overrides, "waveunet")
+    net = backend.sep.net
+    geometry = (backend.sep.window_samples, net.channels, net.depth)
+    print(f"waveunet serving: backend window {geometry[0]}, channels {geometry[1]}, depth "
+          f"{geometry[2]} on {next(net.parameters()).device} ({net.dtype}); expected "
+          f"{want['windows']} windows of {want['window']} in pieces {want['sizes']}, "
+          f"{want['forwards']} forwards of <= {backend.map_group}, K1 {want['k1']}")
+    if geometry != (NATIVE_WINDOW, 24, 4) or (want["windows"], len(want["sizes"])) != (11, 6):
+        fail(f"waveunet serving: geometry {geometry}, {want['windows']} windows in "
+             f"{len(want['sizes'])} pieces; expected ({NATIVE_WINDOW}, 24, 4), 11 in 6")
+    kernels = reset_counts()  # the WaveUNet's serving starts: only its launches count
+    calls = (("v2.2_mdd", "cold"), ("v2.2_mdd", "warm"), ("vocal_separation", "warm"))
+    with _Capture(fused) as cap:
+        for call, (mode, label) in enumerate(calls):
+            out = work / f"waveunet{call}"
+            k1, k2 = kernels["K1"].launches, kernels["K2"].launches
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                     mode=None if mode == "v2.2_mdd" else mode,
+                                     runtime_overrides=overrides)
+            wall = time.perf_counter() - t0
+            k1, k2 = kernels["K1"].launches - k1, kernels["K2"].launches - k2
+            WALLS[f"waveunet {mode} {label}"] = wall
+            print(f"waveunet {mode} call {call} ({label}): {wall:.3f} s wall, {SONG_S / wall:.2f} "
+                  f"audio-s per wall-s (convtdf v2.2_mdd warm: "
+                  f"{SONG_S / WALLS['v2.2_mdd warm']:.2f}), pass "
+                  f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, {m['gpu']['gpu_pipeline_mode']}, "
+                  f"K1 launches {k1}, K2 launches {k2}, peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev)} bytes")
+            if not m["success"]:
+                fail(f"waveunet {mode} call {call} failed: {m}")
+            if (m["separation"]["backend"] != "waveunet"
+                    or m["gpu"]["gpu_pipeline_backend"] != "waveunet"
+                    or m["gpu"]["gpu_pipeline_chunks"] != want["windows"]):
+                fail(f"waveunet {mode} call {call}: separation {m['separation']}, gpu {m['gpu']}")
+            if mode == "vocal_separation":
+                if (m["gpu"]["gpu_pipeline_device"] != "cuda"
+                        or m["gpu"]["gpu_pipeline_mode"] != want["engine"] or (k1, k2) != (0, 0)):
+                    fail(f"waveunet vocal_separation: K1 {k1}, K2 {k2}, gpu {m['gpu']}; expected "
+                         f"K1 0 and K2 0 on cuda, {want['engine']}")
+                check_stems("waveunet vocal_separation", m, out, audio)
+                continue
+            check_pass(f"waveunet v2.2_mdd call {call}", m, k1, k2, backend="waveunet",
+                       overrides=overrides)
+            # 20 steps of training leave the stem without clean pauses, so
+            # one segment is a valid result: the splice is what is held
+            check_segments(m, out, audio, min_segments=1)
+            sep = cap.last[0]
+            n = audio.size
+            err = float((sep.vocal_device.double() + sep.instrumental_device.double()
+                         - sep.mix_device[:n].double()).abs().max())
+            labels = [s["label"] for s in m["segments"]]
+            card_cuts = m["cuts"]["samples"]
+            print(f"waveunet v2.2_mdd call {call}: {len(labels)} segments {labels}, cuts "
+                  f"(samples) {m['cuts']['samples']}, spliced back exactly; device |vocal + "
+                  f"instrumental - mix| = {err:.3e} (<= {WAVEUNET_SUM_ATOL})")
+            if not err <= WAVEUNET_SUM_ATOL:
+                fail(f"waveunet v2.2_mdd call {call}: the stems do not sum to the mix ({err})")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"waveunet serving: launches in the {len(calls)} calls {launches}")
+    if launches != {"K0": 1, "K1": 0, "K1B": 0, "K1W": 0, "K2": 2}:
+        fail(f"waveunet serving launched {launches}; expected K0 1, K1 0 and K2 2")
+    del cap, sep
+
+    # the warm call's cuts against the same checkpoint served on the CPU
+    m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(work / "waveunet_cpu"),
+                             device="cpu", runtime_overrides=overrides)
+    cpu_cuts = m["cuts"]["samples"]
+    print(f"waveunet cuts (samples), warm v2.2_mdd call on the card {card_cuts}, on the CPU "
+          f"{cpu_cuts} (each within one dB-grid stride, {DB_STRIDE} samples)")
+    if not m["success"] or len(cpu_cuts) != len(card_cuts) or any(
+            abs(a - b) > DB_STRIDE for a, b in zip(card_cuts, cpu_cuts)):
+        fail("waveunet: the card's cuts and the CPU's differ beyond one dB-grid stride")
+
+    # one map group of windows, card (bf16, the served backend) against CPU (f32)
+    w = backend.sep.window_samples
+    starts = [int(10.0 * SR) + j * (w // 2) for j in range(backend.map_group)]
+    x = torch.from_numpy(np.stack([audio[s:s + w] for s in starts]))
+    v_gpu, _ = backend.separate_windows(x.to(dev))
+    cpu = WaveUNetSeparator(SR, w, net.channels, net.depth, dtype=torch.float32)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    t0 = time.perf_counter()
+    v_cpu, _ = cpu.separate(x, w)
+    cpu_s = time.perf_counter() - t0
+    snr = snr_db(v_cpu.numpy(), v_gpu.float().cpu().numpy())
+    print(f"waveunet group parity ({backend.map_group} windows of {w} samples in one forward): "
+          f"vocal SNR card bf16 vs CPU f32 = {snr:.2f} dB (required >= {WAVEUNET_GROUP_SNR_DB}); "
+          f"CPU forward {cpu_s:.2f} s")
+    if not snr >= WAVEUNET_GROUP_SNR_DB:
+        fail(f"waveunet group parity {snr:.2f} dB < {WAVEUNET_GROUP_SNR_DB} dB")
+    profile_call(torch, work, overrides=overrides, name="waveunet")
+    return launches["K2"]
 
 
 def main() -> int:
@@ -2911,6 +3201,11 @@ def main() -> int:
         profile_step(torch, report["trainer"])
         del report
         card_vs_cpu_step(torch, dev)
+        waveunet_ckpt, trainer = train_waveunet(torch, dev, work)
+        profile_step(torch, trainer, "profile waveunet step")
+        del trainer
+        waveunet_step_parity(torch, dev)
+        waveunet_k2 = serve_waveunet(torch, dev, work, audio, waveunet_ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1w_err_edges, k1w_timing = check_k1w(torch, dev)
@@ -2988,7 +3283,8 @@ def main() -> int:
         "library_ms": k2_timing["library_ms"],
         # the bundle's grid (the numbers above) and librosa_onset's
         "shapes": k2_timings,
-        "paths": {"batch": {"launches": batch_launches["K2"]}},
+        "paths": {"batch": {"launches": batch_launches["K2"]},
+                  "waveunet": {"launches": waveunet_k2}},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -45,6 +45,8 @@ def test_port_sources_import_nothing_forbidden():
                                                "cli_provider", "in_process")} <= set(files)
     # and the legacy detector's YIN/LPC analysis
     assert PORT / "ops/voice.py" in files
+    # and the WaveUNet tier with its trainer
+    assert {PORT / "models/waveunet.py", PORT / "training/wave_trainer.py"} <= set(files)
     bad = [(p.relative_to(REPO).as_posix(), m) for p in files for m in _imported_roots(p)
            if _forbidden(m)]
     assert bad == []
@@ -56,6 +58,8 @@ def test_import_leaves_forbidden_modules_unloaded():
         "names = [m.name for m in pkgutil.walk_packages(audio_cut_tpu_torch.__path__, "
         "'audio_cut_tpu_torch.')]\n"
         "assert 'audio_cut_tpu_torch.ops.voice' in names\n"
+        "assert {'audio_cut_tpu_torch.models.waveunet', "
+        "'audio_cut_tpu_torch.training.wave_trainer'} <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -112,14 +116,18 @@ def test_trainer_entry_point_raises_without_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--family", "waveunet"], "Other separator tiers"),
+    # --family waveunet is in the port; an orbax checkpoint directory is not
+    (["--family", "waveunet", "--small", "--synthetic", "--checkpoint", "orbax_dir"],
+     "Other separator tiers"),
     (["--large", "--rich"], "queue 1, 'Training'"),
 ])
-def test_trainer_options_outside_the_slice_raise(argv, item):
+def test_trainer_options_outside_the_slice_raise(argv, item, tmp_path, monkeypatch):
     from audio_cut_tpu_torch.training.train_separator import main
 
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         main([*argv, "--steps", "1", "--device", "cpu"])
+    assert not (tmp_path / "orbax_dir").exists()
 
 
 def test_sharded_training_raises():
@@ -135,11 +143,17 @@ def test_sharded_training_raises():
 
 
 @pytest.mark.parametrize("backend", ["waveunet", "onnx"])
-def test_backends_outside_the_slice_raise(backend):
+def test_backends_outside_the_slice_raise(backend, tmp_path):
+    from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
     from audio_cut_tpu_torch.separation.backends import make_backend
 
-    with pytest.raises(NotImplementedError, match="other separator tiers"):
-        make_backend(backend, 44100, "cpu")
+    # the waveunet tier is in the port; an orbax checkpoint directory is not
+    set_runtime_config({"enhanced_separation.waveunet.checkpoint": str(tmp_path)})
+    try:
+        with pytest.raises(NotImplementedError, match="other separator tiers"):
+            make_backend(backend, 44100, "cpu")
+    finally:
+        reset_runtime_config()
 
 
 def test_config_defaults_are_the_jax_yaml_but_for_the_device():
