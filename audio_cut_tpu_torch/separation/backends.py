@@ -2,10 +2,11 @@
 
 Counterpart of ``audio_cut_tpu/separation/backends.py``. ``make_backend``
 builds ``convtdf`` (the packaged ConvTDF), ``waveunet`` (the waveform U-Net,
-from the checkpoint ``train_separator --family waveunet`` writes) and
-``spectral`` (the model-free harmonic-percussive mask, also the trainer's
-held-out yardstick); asking for ``onnx`` raises ``NotImplementedError``
-naming its ROADMAP.md item. The spectral backend's median filters are elementwise min/max
+from the checkpoint ``train_separator --family waveunet`` writes), ``onnx``
+(an MDX-class ``.onnx`` mask net, ``separation/onnx_backend.py``; no model
+raises ``FileNotFoundError``) and ``spectral`` (the model-free
+harmonic-percussive mask, also the trainer's held-out yardstick). The
+spectral backend's median filters are elementwise min/max
 networks, as in the JAX package (plain array code there, no Pallas); its
 iSTFT ends in kernel K1.
 """
@@ -13,6 +14,7 @@ iSTFT ends in kernel K1.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -135,10 +137,6 @@ class SpectralMaskBackend:
         return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
-_NOT_PORTED = {
-    "onnx": "other separator tiers (waveunet, onnx)",
-}
-
 # backend instances (weights on the device) survive across engine/API calls;
 # keyed by name, sample rate, device and the config values the backend reads,
 # so a runtime-config change builds a new one. Bounded, oldest out first: each
@@ -152,15 +150,15 @@ def _config_key(name: str) -> Tuple:
     if name == "spectral":
         # the spectral backend also reads its band edges from vocal_separation
         cfg = {**cfg, **(get_config("vocal_separation", {}) or {})}
-    return tuple(sorted((k, str(v)) for k, v in cfg.items()))
+    key = tuple(sorted((k, str(v)) for k, v in cfg.items()))
+    if name == "onnx":
+        # the model's discovery also reads two environment variables
+        key += (os.environ.get("AUDIO_CUT_ONNX_MODEL"), os.environ.get("MDX23_MODEL_FILENAME"))
+    return key
 
 
 def make_backend(name: str, sample_rate: int, device: torch.device):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"separation backend {name!r} is not in the PyTorch port yet: "
-            f"ROADMAP.md, queue 1, '{_NOT_PORTED[name]}'")
-    if name not in ("convtdf", "waveunet", "spectral"):
+    if name not in ("convtdf", "waveunet", "onnx", "spectral"):
         raise ValueError(f"unknown separation backend {name!r}")
     device = indexed(device)  # "cuda" and "cuda:0" are one card: one backend
     key = (name, int(sample_rate), str(device), _config_key(name))
@@ -172,6 +170,10 @@ def make_backend(name: str, sample_rate: int, device: torch.device):
             from audio_cut_tpu_torch.models.waveunet import WaveUNetBackend
 
             backend = WaveUNetBackend(sample_rate, device)
+        elif name == "onnx":
+            from audio_cut_tpu_torch.separation.onnx_backend import OnnxSeparatorBackend
+
+            backend = OnnxSeparatorBackend(sample_rate, device)
         else:
             from audio_cut_tpu_torch.models.convtdf import ConvTDFBackend
 

@@ -206,7 +206,30 @@
     same checkpoint (same count, each within one dB-grid stride); one map group of 4 windows through the backend, card (bf16) against CPU
     (float32), at SNR >= ``WAVEUNET_GROUP_SNR_DB``; and one more warm call
     profiled;
-13. holds K1W (``csrc/ola.cu``, the window's gradient: one launch that
+13. drives the ONNX tier (``separation/onnx_backend.py``, the port's
+    ``onnx/`` reader and executor): writes the Kim_Vocal_1-geometry graph
+    (``testing.KIM_VOCAL_1``: dim_f 3072, dim_t 256, L 11, g 48, l 3, bn 8;
+    459 nodes, ``ONNX_PARAMS`` parameters from ``ONNX_SEED``) under
+    ``build/`` with "vocal" in its name and reads it back (every op
+    supported, input [None, 4, 3072, 256]); holds the executor against the
+    ``ConvTDFNetTrim`` it was written from on one [1, 4, 3072, 256] input
+    (``ONNX_NET_RTOL_F32`` of the net's scale with cuDNN's TF32 off,
+    ``ONNX_NET_RTOL_SERVED`` at the process's flags) and runs one more
+    forward under ``torch.cuda.set_sync_debug_mode("error")``; then serves
+    it (``enhanced_separation.backend: onnx``, the config's dim_f 2048
+    overruled by the file) through ``separate_and_segment()`` with no mode,
+    cold then warm, and ``mode="vocal_separation"`` once: backend onnx on
+    cuda, 11 windows in 6 pieces, K1 at the rows ``expected_pass(...,
+    "onnx", ...)`` computes (5 at [4, 256, 6144] and 1 at [2, 256, 6144] a
+    call, recorded at each launch), K2 1 a v2.2_mdd call and 0 in
+    vocal_separation, K0 once in the phase, the device stems summing to the
+    mix within ``ONNX_SUM_RTOL`` of the vocal's scale, the exact splice (one
+    segment allowed: the weights are seeded), each call's wall, audio-s per
+    wall-s and peak memory printed; one model window through
+    ``separate_windows`` card against CPU (plain K1) at SNR >=
+    ``ONNX_SNR_DB`` with the TF32 flags printed beside it; and one more warm
+    call profiled, with the separation's launches per forward;
+14. holds K1W (``csrc/ola.cu``, the window's gradient: one launch that
     reduces the rows across a thread-block cluster) at its edge shapes
     (``K1W_EDGE_SHAPES`` of ``audio_cut_tpu_torch/testing.py``, which the
     card tests share: one frame, fewer rows than its cluster, rows its
@@ -220,12 +243,13 @@
     not counted in their peak memory. Its two other checks run right after
     4, before any serving phase (``check_k1w_profile``): two launches give
     the same bits, and one profiled call runs one device kernel;
-14. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
+15. prints a ``kernels`` JSON line (K1's launches are the two v2.2_mdd
     calls'; its entry also lists its times at every timed shape under
     ``shapes``, the piece's first, K2's at the
     bundle's grid and librosa_onset's; under ``paths`` K1's launches and
-    shapes in the shifts phase's two calls and in the batch, and K2's in the
-    batch and in the WaveUNet phase) and, last,
+    shapes in the shifts phase's two calls, in the batch and in the ONNX
+    phase, and K2's in the batch, the WaveUNet phase and the ONNX phase)
+    and, last,
     ``{"ok": true, "device": ...}``.
 
 Every phase that fails raises, so the script exits non-zero and prints no
@@ -354,6 +378,7 @@ VOICING_ATOL = 1e-3
 F0_HZ, F0_MIN_SHARE = 0.5, 0.995
 LEGACY_CONF_ATOL = 0.3 / 20 * 1.4
 WALLS = {}  # label -> wall seconds of the calls that later phases print beside theirs
+SPAN_LAUNCHES = {}  # (profiled call, span) -> the kernel launches inside the span
 # the whole-track phase (the piece upload off) and the YAML-config phase
 # (``$AUDIO_CUT_TPU_CONFIG`` names a file that widens the pieces to 3 windows)
 UNPIPELINED = {"device_pipeline.pipelined_upload": False}
@@ -375,6 +400,17 @@ BATCH_STEM_ATOL = 1e-5
 WAVEUNET_STEPS = 20
 WAVEUNET_GROUP_SNR_DB = 30.0  # one map group of 4 windows, card bf16 vs CPU f32
 WAVEUNET_SUM_ATOL = 1e-5  # |vocal + instrumental - mix| on the card: float32 sums of the OLA
+# the ONNX phase: the Kim_Vocal_1-geometry graph (testing.KIM_VOCAL_1) at its
+# published width, its weights from this seed
+ONNX_SEED = 0
+ONNX_PARAMS = 16_701_760  # ConvTDFNetTrim's parameters at KIM_VOCAL_1
+# the executor against the torch net it was written from, on the card: max
+# |diff| over max |net|, in float32 (cuDNN's TF32 off for the check: the JAX
+# package's CPU bound) and at the process's flags, as served
+ONNX_NET_RTOL_F32 = 1e-4
+ONNX_NET_RTOL_SERVED = 1e-2
+ONNX_SNR_DB = 30.0  # one model window, card against CPU
+ONNX_SUM_RTOL = 1e-5  # |vocal + instrumental - mix| over max(1, max |vocal|), on the card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12          # float32 outside the tensor cores, the same sheet
 
@@ -1185,9 +1221,13 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     takes ``map_group // s`` windows and sends windows x s rows through K1.
     The WaveUNet (``backend="waveunet"``, its checkpoint in ``overrides``)
     runs ``map_group`` windows a forward with no iSTFT, so K1 launches 0
-    times. Returns the windows, the piece sizes, the forwards, K1's launches
-    and the rows of each, the largest batch a forward sees, and the manifest
-    labels of the fused pass and of the engine."""
+    times. The ONNX tier (``backend="onnx"``, its model in ``overrides``)
+    runs its backend's ``map_group // shifts`` windows a forward and sends
+    its mono windows through the STFT as stereo: a forward of n windows
+    sends 2n x shifts rows through K1. Returns the windows, the piece sizes,
+    the forwards, K1's launches and the rows of each, the largest batch a
+    forward sees, and the manifest labels of the fused pass and of the
+    engine."""
     import math
 
     from audio_cut_tpu_torch.config import get_config
@@ -1201,12 +1241,14 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     def cfg(name, section="device_pipeline"):
         return (overrides or {}).get(f"{section}.{name}", get_config(f"{section}.{name}"))
 
-    shifts = 1
-    if backend == "waveunet":
-        model = _backend_under(overrides, "waveunet")
+    shifts, stereo = 1, 1
+    if backend in ("waveunet", "onnx"):
+        model = _backend_under(overrides, backend)
         g = model.engine_geometry()
         geometry = (g["chunk_s"], g["overlap_s"], g["halo_s"], int(g["align"]))
         group = model.map_group
+        if backend == "onnx":
+            shifts, stereo = model.shifts, 2
     elif backend == "convtdf":
         # the main path's own backend (cached after its first call); its model
         # window is the engine window
@@ -1230,7 +1272,7 @@ def expected_pass(n: int, backend: str = "convtdf", overrides: Optional[dict] = 
     else:
         sizes, fused, engine = [windows], "fused_single_program", "device_ola"
     forwards = [min(group, k - j) * shifts for k in sizes for j in range(0, k, group)]
-    rows = [] if backend == "waveunet" else forwards
+    rows = [] if backend == "waveunet" else [f * stereo for f in forwards]
     out = {"windows": windows, "window": window, "sizes": sizes, "forwards": len(forwards),
            "k1": len(rows), "rows": rows, "batch": max(forwards), "fused": fused,
            "engine": engine}
@@ -2356,10 +2398,11 @@ def check_stems(tag: str, m, out: Path, audio) -> None:
     print(f"{tag}: stems 24-bit x {audio.size} samples, finite, "
           f"|vocal + instrumental - mix| <= {err:.3e}")
 
-def _backend_under(overrides: Optional[dict], name: str = "convtdf"):
+def _backend_under(overrides: Optional[dict], name: str = "convtdf", device: str = "cuda"):
     """The ``name`` backend the entry points use under ``overrides`` (the
     backend cache's instance: they ask for "cuda", and the cache keeps the
-    backends of this script's configurations without dropping one)."""
+    backends of this script's configurations without dropping one); with
+    ``device="cpu"``, the same backend on the CPU."""
     from audio_cut_tpu_torch.config import get_config_manager
     from audio_cut_tpu_torch.config.manager import set_nested
     from audio_cut_tpu_torch.separation.backends import make_backend
@@ -2369,7 +2412,7 @@ def _backend_under(overrides: Optional[dict], name: str = "convtdf"):
     try:
         for key, value in (overrides or {}).items():
             set_nested(mgr.config, key, value)
-        return make_backend(name, SR, "cuda")
+        return make_backend(name, SR, device)
     finally:
         mgr.restore(snapshot)
 
@@ -2684,6 +2727,7 @@ def report_profile(torch, prof, wall_ms: float, name: str, spans_of=SPANS):
               f"({over_us / copy_us if copy_us else float('nan'):.3f}) overlap kernel time")
     for span, (a, b) in sorted(ranges.items(), key=lambda kv: kv[1]):
         inside = [e for e in kernels if a <= e.time_range.start and e.time_range.end <= b]
+        SPAN_LAUNCHES[(name, span)] = len(inside)
         busy = _union_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e3
         print(f"profile ({name}): span {span} on the card: {(b - a) / 1e3:.1f} ms from its first kernel "
               f"to its last, {busy:.1f} ms busy, {len(inside)} kernel launches")
@@ -3136,6 +3180,237 @@ def serve_waveunet(torch, dev, work: Path, audio, ckpt: Path) -> int:
     return launches["K2"]
 
 
+def build_onnx_model(torch, work: Path):
+    """The ONNX phase's model: ``ConvTDFNetTrim`` at ``KIM_VOCAL_1`` (dim_f
+    3072, dim_t 256, L 11, k 3, g 48, l 3, bn 8), its weights from
+    ``ONNX_SEED``, written as an ONNX graph under ``work`` with "vocal" in
+    its name (so ``output: auto`` reads vocals) and read back with the port's
+    reader. Requires ``validate_graph == []``, the input [None, 4, 3072, 256],
+    ``ONNX_PARAMS`` parameters in the net and, in the graph, exactly those
+    plus the BatchNorms' running statistics and the GroupNorm lowering's unit
+    affines (2 + 2 floats each). Returns (the file, the net on the CPU)."""
+    from collections import Counter
+
+    from audio_cut_tpu_torch.onnx import load_model, save_model, validate_graph
+    from audio_cut_tpu_torch.testing import KIM_VOCAL_1, build_graph, make_net
+
+    t0 = time.perf_counter()
+    net = make_net(**KIM_VOCAL_1, generator=torch.Generator().manual_seed(ONNX_SEED))
+    graph = build_graph(net, KIM_VOCAL_1["g"], KIM_VOCAL_1["l"], KIM_VOCAL_1["k"],
+                        KIM_VOCAL_1["bn"])
+    path = work / "onnx" / "kim_vocal_1_geometry_seeded.onnx"
+    path.parent.mkdir()
+    save_model(graph, str(path))
+    built_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = load_model(str(path))
+    read_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in net.parameters())
+    stats = sum(m.running_mean.numel() + m.running_var.numel() for m in net.modules()
+                if isinstance(m, torch.nn.BatchNorm2d))
+    norms = sum(isinstance(m, torch.nn.GroupNorm) for m in net.modules())
+    floats = sum(int(a.size) for a in g.initializers.values() if a.dtype.kind == "f")
+    print(f"onnx build: {KIM_VOCAL_1}, seed {ONNX_SEED}: {len(g.nodes)} nodes "
+          f"{dict(sorted(Counter(n.op_type for n in g.nodes).items()))}; {params} parameters, "
+          f"{floats} floats in the graph (+ {stats} running statistics, + {4 * norms} unit "
+          f"affines of {norms} GroupNorms); {path.name} {path.stat().st_size} bytes; built and "
+          f"written in {built_s:.2f} s, read back in {read_s:.2f} s")
+    unsupported = validate_graph(g)
+    shape = g.input_shapes.get(g.inputs[0]) if g.inputs else None
+    if (unsupported or shape != [None, 4, KIM_VOCAL_1["dim_f"], KIM_VOCAL_1["dim_t"]]
+            or params != ONNX_PARAMS or floats != params + stats + 4 * norms):
+        fail(f"onnx build: unsupported {unsupported}, input {shape}, {params} parameters "
+             f"(expected {ONNX_PARAMS}), {floats} floats in the graph")
+    return path, net
+
+
+def onnx_executor_check(torch, dev, path: Path, net) -> None:
+    """The port's executor on the graph against the ``ConvTDFNetTrim`` it was
+    written from, on the card, on one seeded [1, 4, 3072, 256] input: max
+    |diff| <= ``ONNX_NET_RTOL_F32`` x max |net| with cuDNN's TF32 off for
+    the check, and <= ``ONNX_NET_RTOL_SERVED`` x max |net| at the process's
+    flags (the serving path's); then one more forward under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises if the forward
+    reads a value back from the card, and its output within
+    ``ONNX_NET_RTOL_F32`` x max |output| of the one before."""
+    import numpy as np
+
+    from audio_cut_tpu_torch.onnx import OnnxGraphModule, load_model
+
+    module = OnnxGraphModule(load_model(str(path))).to(dev).eval()
+    net = net.to(dev)
+    x = np.random.default_rng(17).standard_normal((1, 4, 3072, 256)).astype(np.float32)
+    x = torch.from_numpy(0.5 * x).to(dev)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    for label, rtol, tf32 in (("float32", ONNX_NET_RTOL_F32, False),
+                              ("served flags", ONNX_NET_RTOL_SERVED, flags[0])):
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            (y,) = module(x)
+            ref = net(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (y,) = module(x)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+        err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+        print(f"onnx executor vs its torch net on the card ({label}: cudnn.allow_tf32 {tf32}, "
+              f"cuda.matmul.allow_tf32 {flags[1]}): max |diff| {err:.3e}, max |net| {scale:.4f}, "
+              f"ratio {err / scale:.3e} (bound {rtol}); one warm forward {fwd_ms:.1f} ms")
+        if not (torch.isfinite(y).all() and err <= rtol * scale):
+            fail(f"onnx executor vs its net ({label}): {err} > {rtol} x {scale}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            (again,) = module(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # cuDNN may sum a transposed conv with atomics: the same values up to their order
+    diff = float((again - y).abs().max())
+    print(f"onnx executor: one more forward under torch.cuda.set_sync_debug_mode('error') raised "
+          f"nothing (no value read back from the card); max |diff| to the forward before {diff:.3e}")
+    if not diff <= ONNX_NET_RTOL_F32 * float(y.abs().max()):
+        fail(f"onnx executor: the forward under set_sync_debug_mode('error') differs by {diff}")
+    del module, net, x, y, ref, again
+
+
+def run_onnx(torch, dev, work: Path, audio) -> dict:
+    """The ONNX tier (``separation/onnx_backend.py``) on the card, every
+    count set to 0 just before it: builds the Kim_Vocal_1-geometry graph
+    (``build_onnx_model``), holds the executor against its torch net
+    (``onnx_executor_check``), then serves it (``enhanced_separation.backend:
+    onnx``, the file as ``enhanced_separation.onnx.model_path``; the config
+    keeps dim_f 2048 and the file's 3072 must win) through
+    ``separate_and_segment()`` with no mode and no device, cold then warm,
+    and ``mode="vocal_separation"`` once. Each call reports backend onnx on
+    cuda, runs the 11 engine windows of 261120 samples in the 6 pieces
+    ``expected_pass(..., "onnx", ...)`` computes and launches K1 at the rows
+    it computes (2 a window: 5 at [4, 256, 6144], 1 at [2, 256, 6144]),
+    K2 once in v2.2_mdd and 0 in vocal_separation, K0 once in the phase;
+    the v2.2_mdd calls' device stems sum to their mix within
+    ``ONNX_SUM_RTOL`` and their segments splice back exactly (one segment
+    allowed: the weights are seeded, not trained); the vocal_separation
+    stems pass ``check_stems``. Then one model window through
+    ``separate_windows`` on the card and on the CPU (plain K1) at SNR >=
+    ``ONNX_SNR_DB``, with the TF32 flags printed beside it, and one more
+    warm v2.2_mdd call profiled. Returns K1's and K2's launches in the phase
+    and K1's shapes."""
+    import numpy as np
+
+    from audio_cut_tpu_torch import separate_and_segment
+    from audio_cut_tpu_torch.separation import fused
+
+    kernels = reset_counts()  # the ONNX phase starts: only its launches count
+    path, net = build_onnx_model(torch, work)
+    onnx_executor_check(torch, dev, path, net)
+    del net
+    overrides = {"enhanced_separation.backend": "onnx",
+                 "enhanced_separation.onnx.model_path": str(path)}
+    want = expected_pass(audio.size, "onnx", overrides)
+    backend = _backend_under(overrides, "onnx")
+    geometry = (backend.dim_f, backend.dim_t, backend.window_samples, backend.output)
+    print(f"onnx serving: backend dim_f {geometry[0]}, dim_t {geometry[1]}, window {geometry[2]}, "
+          f"output {geometry[3]}, {backend.net.param_count()} floats on "
+          f"{next(backend.net.buffers()).device}, map_group {backend.map_group}, shifts "
+          f"{backend.shifts}; expected {want['windows']} windows in pieces {want['sizes']}, "
+          f"{want['forwards']} forwards, K1 {want['k1']} at rows {want['rows']}")
+    if (geometry != (3072, 256, 261120, "vocals")
+            or (want["windows"], len(want["sizes"])) != (11, 6)):
+        fail(f"onnx serving: geometry {geometry}, {want['windows']} windows in "
+             f"{len(want['sizes'])} pieces; expected (3072, 256, 261120, 'vocals'), 11 in 6")
+    want_rows = {}
+    for r in want["rows"]:
+        key = str([r, backend.dim_t, backend.n_fft])
+        want_rows[key] = want_rows.get(key, 0) + 1
+    calls = (("v2.2_mdd", "cold"), ("v2.2_mdd", "warm"), ("vocal_separation", "warm"))
+    shapes = {}
+    with _Capture(fused) as cap, _K1Rows() as rows:
+        for call, (mode, label) in enumerate(calls):
+            out = work / f"onnx{call}"
+            k1, k2, start = kernels["K1"].launches, kernels["K2"].launches, len(rows.shapes)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            m = separate_and_segment(input_uri=str(work / "song.wav"), export_dir=str(out),
+                                     mode=None if mode == "v2.2_mdd" else mode,
+                                     runtime_overrides=overrides)
+            wall = time.perf_counter() - t0
+            k1, k2 = kernels["K1"].launches - k1, kernels["K2"].launches - k2
+            got_rows = rows.counts(start)
+            for key, k in got_rows.items():
+                shapes[key] = shapes.get(key, 0) + k
+            WALLS[f"onnx {mode} {label}"] = wall
+            print(f"onnx {mode} call {call} ({label}): {wall:.3f} s wall, {SONG_S / wall:.2f} "
+                  f"audio-s per wall-s (convtdf v2.2_mdd warm: "
+                  f"{SONG_S / WALLS['v2.2_mdd warm']:.2f}), pass "
+                  f"{m['gpu']['gpu_pipeline_compute_ms']:.1f} ms, {m['gpu']['gpu_pipeline_mode']}, "
+                  f"K1 launches {k1} at {got_rows}, K2 launches {k2}, peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev)} bytes")
+            if not m["success"]:
+                fail(f"onnx {mode} call {call} failed: {m}")
+            if (m["separation"]["backend"] != "onnx" or m["gpu"]["gpu_pipeline_backend"] != "onnx"
+                    or m["gpu"]["gpu_pipeline_chunks"] != want["windows"]
+                    or got_rows != want_rows):
+                fail(f"onnx {mode} call {call}: separation {m['separation']}, gpu {m['gpu']}, "
+                     f"K1 rows {got_rows}; expected K1 at {want_rows}")
+            if mode == "vocal_separation":
+                if (m["gpu"]["gpu_pipeline_device"] != "cuda"
+                        or m["gpu"]["gpu_pipeline_mode"] != want["engine"]
+                        or (k1, k2) != (want["k1"], 0)):
+                    fail(f"onnx vocal_separation: K1 {k1}, K2 {k2}, gpu {m['gpu']}; expected "
+                         f"K1 {want['k1']} and K2 0 on cuda, {want['engine']}")
+                check_stems("onnx vocal_separation", m, out, audio)
+                continue
+            check_pass(f"onnx v2.2_mdd call {call}", m, k1, k2, backend="onnx", overrides=overrides)
+            # seeded weights: the stem has no clean pauses, so one segment is
+            # a valid result; the splice is what is held
+            check_segments(m, out, audio, min_segments=1)
+            sep = cap.last[0]
+            n = audio.size
+            vocal = sep.vocal_device.double()
+            err = float((vocal + sep.instrumental_device.double()
+                         - sep.mix_device[:n].double()).abs().max())
+            bound = ONNX_SUM_RTOL * max(1.0, float(vocal.abs().max()))
+            finite = bool(torch.isfinite(vocal).all())
+            labels = [s["label"] for s in m["segments"]]
+            print(f"onnx v2.2_mdd call {call}: {len(labels)} segments {labels}, cuts (samples) "
+                  f"{m['cuts']['samples']}, spliced back exactly; vocal rms "
+                  f"{float(vocal.pow(2).mean().sqrt()):.4e}, max {float(vocal.abs().max()):.4e}, "
+                  f"finite {finite}; device |vocal + instrumental - mix| = {err:.3e} (<= {bound:.3e})")
+            if not (finite and err <= bound):
+                fail(f"onnx v2.2_mdd call {call}: the stems are not finite or do not sum to "
+                     f"the mix ({err})")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"onnx phase: launches {launches} (K1 at {shapes})")
+    if launches != {"K0": 1, "K1": 3 * want["k1"], "K1B": 0, "K1W": 0, "K2": 2}:
+        fail(f"the onnx phase launched {launches}; expected K0 1, K1 {3 * want['k1']}, K2 2")
+    del cap, sep, vocal
+
+    # one model window, card (the served backend) against CPU (plain K1)
+    w = backend.window_samples
+    start = int(10.0 * SR)
+    x = torch.from_numpy(audio[start:start + w].copy())[None]
+    v_gpu, _ = backend.separate_windows(x.to(dev))
+    cpu = _backend_under(overrides, "onnx", device="cpu")
+    t0 = time.perf_counter()
+    v_cpu, _ = cpu.separate_windows(x)
+    cpu_s = time.perf_counter() - t0
+    snr = snr_db(v_cpu[0].numpy(), v_gpu[0].cpu().numpy())
+    print(f"onnx window parity ({w} samples, one forward): vocal SNR card vs CPU = {snr:.2f} dB "
+          f"(required >= {ONNX_SNR_DB}); torch.backends.cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; CPU forward {cpu_s:.2f} s")
+    if not snr >= ONNX_SNR_DB:
+        fail(f"onnx window parity {snr:.2f} dB < {ONNX_SNR_DB} dB")
+    del cpu, v_cpu, v_gpu
+
+    profile_call(torch, work, overrides=overrides, name="onnx")
+    sep_launches = SPAN_LAUNCHES.get(("onnx", "separation"))
+    if sep_launches is not None:
+        print(f"profile (onnx): {sep_launches} kernel launches in the separation span, "
+              f"{sep_launches / want['forwards']:.1f} per forward ({want['forwards']} forwards)")
+    return {"K1": {"launches": launches["K1"], "shapes": shapes}, "K2": launches["K2"]}
+
+
 def main() -> int:
     if not (ROOT / "audio_cut_tpu_torch").is_dir():
         print("chip_smoke: audio_cut_tpu_torch is not beside this script", file=sys.stderr)
@@ -3206,6 +3481,7 @@ def main() -> int:
         del trainer
         waveunet_step_parity(torch, dev)
         waveunet_k2 = serve_waveunet(torch, dev, work, audio, waveunet_ckpt)
+        onnx_launches = run_onnx(torch, dev, work, audio)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1w_err_edges, k1w_timing = check_k1w(torch, dev)
@@ -3244,7 +3520,8 @@ def main() -> int:
         # K1 on the later paths: its launches and their shapes
         "paths": {"shifts_2": shifts_k1,
                   "batch": {"launches": batch_launches["K1"],
-                            "shapes": batch_launches["shapes"]}},
+                            "shapes": batch_launches["shapes"]},
+                  "onnx": onnx_launches["K1"]},
     }, {
         "name": "K1 backward (g_frames) ola_backward_frames",
         "route": "cuda",
@@ -3284,7 +3561,8 @@ def main() -> int:
         # the bundle's grid (the numbers above) and librosa_onset's
         "shapes": k2_timings,
         "paths": {"batch": {"launches": batch_launches["K2"]},
-                  "waveunet": {"launches": waveunet_k2}},
+                  "waveunet": {"launches": waveunet_k2},
+                  "onnx": {"launches": onnx_launches["K2"]}},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

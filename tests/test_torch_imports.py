@@ -143,14 +143,19 @@ def test_sharded_training_raises():
 
 
 @pytest.mark.parametrize("backend", ["waveunet", "onnx"])
-def test_backends_outside_the_slice_raise(backend, tmp_path):
+def test_backends_outside_the_slice_raise(backend, tmp_path, monkeypatch):
     from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
     from audio_cut_tpu_torch.separation.backends import make_backend
 
-    # the waveunet tier is in the port; an orbax checkpoint directory is not
+    # both tiers are in the port; an orbax checkpoint directory is not, and
+    # the onnx tier without a model file raises (no fallback)
+    exc, match = {"waveunet": (NotImplementedError, "other separator tiers"),
+                  "onnx": (FileNotFoundError, "no ONNX separation model found")}[backend]
+    monkeypatch.delenv("AUDIO_CUT_ONNX_MODEL", raising=False)
+    monkeypatch.chdir(tmp_path)
     set_runtime_config({"enhanced_separation.waveunet.checkpoint": str(tmp_path)})
     try:
-        with pytest.raises(NotImplementedError, match="other separator tiers"):
+        with pytest.raises(exc, match=match):
             make_backend(backend, 44100, "cpu")
     finally:
         reset_runtime_config()

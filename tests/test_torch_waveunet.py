@@ -224,11 +224,12 @@ def checkpoint(tmp_path, params):
 
 @pytest.mark.parametrize("case", ["unset_fallback_on", "unset_fallback_off", "packaged",
                                   "orbax_dir", "onnx"])
-def test_make_backend_refuses(case, tmp_path):
+def test_make_backend_refuses(case, tmp_path, monkeypatch):
     """No checkpoint, or ``packaged`` (none ships), raises whatever
     ``enable_fallback`` says (the JAX package would run random weights with
     the fallback off); an orbax directory raises naming queue 1; ``onnx``
-    still raises naming its ROADMAP.md item."""
+    with no model file raises ``FileNotFoundError`` (the JAX engine would
+    fall back to another backend)."""
     from audio_cut_tpu_torch.config import reset_runtime_config, set_runtime_config
     from audio_cut_tpu_torch.separation.backends import make_backend
 
@@ -242,9 +243,10 @@ def test_make_backend_refuses(case, tmp_path):
         "packaged": ({}, "waveunet", RuntimeError, "no packaged checkpoint ships"),
         "orbax_dir": ({"enhanced_separation.waveunet.checkpoint": str(tmp_path)},
                       "waveunet", NotImplementedError, "orbax directories: ROADMAP.md, queue 1"),
-        "onnx": ({}, "onnx", NotImplementedError,
-                 r"queue 1, 'other separator tiers \(waveunet, onnx\)'"),
+        "onnx": ({}, "onnx", FileNotFoundError, "no ONNX separation model found"),
     }[case]
+    monkeypatch.delenv("AUDIO_CUT_ONNX_MODEL", raising=False)
+    monkeypatch.chdir(tmp_path)  # no models/ directory to find a default file in
     set_runtime_config(overrides)
     try:
         with pytest.raises(exc, match=match):
