@@ -162,6 +162,23 @@
    ``SeparationEngine.separate_on_device``'s, and the injected engine's mix
    equals the engine's bit for bit. It prints the batch's wall and peak
    memory beside the single calls';
+   Then the shell (``run_shell``): ``cli.main([song, "-o", out, "--json",
+   "--validate-reconstruction"])`` in this process (rc 0, ``reconstruction:
+   OK``, K1 6, K2 1, ``fused_pipelined_p6``, the warm v2.2_mdd call's cut
+   samples, the exact splice); its ``batch`` verb over the batch phase's
+   three songs (rc 0, three JSON lines with ``success``, K1 8 at
+   ``expected_batch``'s rows, K2 3, K0 1, the batch phase's cuts);
+   ``python -m audio_cut_tpu_torch.cli warmup --json`` in a fresh process
+   (rc 0, every step ok, every build step 0.0 s: the libraries this run
+   built were found; each step's wall printed); the 60 s song through
+   ``python -m audio_cut_tpu_torch.cli`` in a fresh process (rc 0, the exact
+   splice; its wall from start to exit, the first-track latency with the
+   kernels built); and ``quick_start.run_interactive`` with ``input``
+   scripted (``QUICK_START_ANSWERS``) on a directory holding
+   song_chorus.wav, which runs vpbd_asr's intent (rc 0, K1 6, K2 1, the
+   manifest passing ``check_vpbd``). Every figure is printed beside the
+   card's name and power limit. The root logger that the CLI configures is
+   restored after the in-process calls;
 8. profiles one more warm v2.2_mdd call and one more warm vpbd_acoustic call
    (on the song of the vpbd phase) (``torch.profiler``): wall time, the spans of the pass (load, separation,
    detection bundle, host tail, export), the card's busy time, the kernels
@@ -395,6 +412,11 @@ SHIFTS = {"enhanced_separation.convtdf.shifts": 2}
 BATCH_SHORT_S = 40.0
 # the batch's stems against single engine runs (max |diff|)
 BATCH_STEM_ATOL = 1e-5
+# the shell phase: quick_start's scripted answers (the first file, split,
+# density, alignment: vpbd_asr's intent), and the subprocesses' time limits
+QUICK_START_ANSWERS = ("1", "split", "medium", "balanced")
+WARMUP_TIMEOUT_S = 480
+FIRST_TRACK_TIMEOUT_S = 240
 # the WaveUNet phase: the served checkpoint comes from the trainer, which
 # refuses to save below min(50, steps) steps, so 20 steps save
 WAVEUNET_STEPS = 20
@@ -2572,6 +2594,7 @@ def run_batch(torch, dev, work: Path, audio):
         batch = separate_and_segment_batch(input_uris=[str(p) for p in paths],
                                            export_dir=str(work / "batch"))
         wall = time.perf_counter() - t0
+    batch_cuts = [json.loads(json.dumps(mb["cuts"])) for mb in batch]
     launches = {name: k.launches for name, k in kernels.items()}
     batch_peak = torch.cuda.max_memory_allocated(dev)
     print(f"batch of {len(paths)} tracks: {wall:.3f} s wall against {single_wall:.3f} s for "
@@ -2620,7 +2643,172 @@ def run_batch(torch, dev, work: Path, audio):
     if not all(m["success"] for m in batch):
         fail("profiled batch call failed")
     report_profile(torch, prof, wall_ms, "batch", spans_of=("mesh_pass",) + SPANS)
-    return {"K1": launches["K1"], "K2": launches["K2"], "shapes": rec.counts()}
+    return {"K1": launches["K1"], "K2": launches["K2"], "shapes": rec.counts(),
+            "paths": paths, "tracks": tracks, "cuts": batch_cuts}
+
+
+def _manifest_of(text: str) -> dict:
+    """The manifest the CLI printed with ``--json`` (``indent=2``): the JSON
+    object from the first "{" of ``text`` on."""
+    _, brace, body = text.partition("{")
+    return json.loads(brace + body)
+
+
+def _shell_subprocess(tag: str, argv, timeout: int, env=None):
+    """``python -m audio_cut_tpu_torch.cli *argv`` from the checkout's root:
+    its stdout and its wall time from start to exit. Fails on a non-zero
+    exit; the time limit kills it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "audio_cut_tpu_torch.cli", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{tag}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return proc.stdout, wall
+
+
+def run_shell(torch, dev, work: Path, audio, warm_m, batch):
+    """The shell: ``cli.main`` on the 60 s song in process (rc 0,
+    ``reconstruction: OK``, ``check_pass``: K1 6, K2 1,
+    ``fused_pipelined_p6``; the cuts of the warm ``v2.2_mdd`` call of
+    ``run_mdd``); its ``batch`` verb over the batch phase's three songs (rc 0,
+    three JSON lines with ``success``, K1 at ``expected_batch``'s rows, K2 3,
+    K0 1, each track's cuts those of the batch phase); ``warmup --json`` in a
+    fresh process (rc 0, every step ok, the kernels found built: every build
+    step 0.0 s); the 60 s song in a fresh process (rc 0, the exact splice;
+    its wall from start to exit is the first-track latency with the kernels
+    built); and ``quick_start.run_interactive`` with its answers scripted
+    (``QUICK_START_ANSWERS``) on a directory holding the song with the loud
+    section, which runs vpbd_asr's intent (rc 0, ``check_pass``, the manifest
+    passes ``check_vpbd``). The CLI configures the root logger; it is
+    restored after the in-process calls."""
+    import builtins
+    import contextlib
+    import io
+    import logging
+
+    from audio_cut_tpu_torch import cli, quick_start
+    from audio_cut_tpu_torch.io import read_wav
+
+    smi = nvidia_smi_line()
+    song = work / "song.wav"
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        kernels = reset_counts()  # the CLI call: only its launches count
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([str(song), "-o", str(work / "cli"), "--json",
+                           "--validate-reconstruction"])
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        head = text.getvalue().partition("{")[0].strip()
+        print(f"shell: cli.main on song.wav: rc {rc}, {head!r}, {wall:.3f} s wall, launches "
+              f"{launches} [{smi}]")
+        if rc != 0 or head != "reconstruction: OK":
+            fail(f"shell: cli.main gave rc {rc} and {head!r}; expected 0 and 'reconstruction: OK'")
+        m = _manifest_of(text.getvalue())
+        check_pass("shell: cli.main", m, launches["K1"], launches["K2"])
+        check_segments(m, work / "cli", audio)
+        if m["cuts"]["samples"] != list(warm_m["cuts"]["samples"]):
+            fail(f"shell: cli.main cuts {m['cuts']['samples']} against the warm API call's "
+                 f"{warm_m['cuts']['samples']}")
+        print(f"shell: cli.main: {len(m['segments'])} segments, cuts (samples) "
+              f"{m['cuts']['samples']}, equal to the warm v2.2_mdd call's; spliced back exactly")
+
+        want_rows = expected_batch([t.size for t in batch["tracks"]])
+        kernels = reset_counts()  # the batch verb: only its launches count
+        text = io.StringIO()
+        with _K1Rows() as rec, contextlib.redirect_stdout(text):
+            t0 = time.perf_counter()
+            rc = cli.main(["batch", *[str(p) for p in batch["paths"]], "-o",
+                           str(work / "cli_batch"), "--json"])
+            wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        rows = [json.loads(line) for line in text.getvalue().splitlines() if line.startswith("{")]
+        print(f"shell: batch verb over {len(batch['paths'])} tracks: rc {rc}, {wall:.3f} s wall, "
+              f"launches {launches}, K1 {rec.counts()} [{smi}]")
+        if rc != 0 or len(rows) != len(batch["paths"]) or not all(r["success"] for r in rows):
+            fail(f"shell: batch verb rc {rc}, lines {rows}")
+        if ([b for b, *_ in rec.shapes] != want_rows or launches["K2"] != len(rows)
+                or launches["K0"] != 1):
+            fail(f"shell: batch verb launches {launches}, K1 at {rec.shapes}; expected K1 rows "
+                 f"{want_rows}, K2 {len(rows)}, K0 1")
+        for row, path, track, cuts in zip(rows, batch["paths"], batch["tracks"], batch["cuts"]):
+            mb = json.loads(Path(row["manifest"]).read_text(encoding="utf-8"))
+            if mb["cuts"] != cuts:
+                fail(f"shell: batch verb {path.name}: cuts {mb['cuts']['samples']} against the "
+                     f"batch phase's {cuts['samples']}")
+            check_segments(mb, work / "cli_batch" / path.stem, track)
+            print(f"shell: batch verb {path.name}: {row['segments']} segments, cuts equal to the "
+                  f"batch phase's; spliced back exactly")
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+    # warmup and a first track, each in a fresh process; the kernels this run
+    # built are in audio_cut_tpu_torch/_build/
+    tmp = work / "tmp"
+    tmp.mkdir()
+    env = dict(os.environ, TMPDIR=str(tmp))
+    out, wall = _shell_subprocess("shell: warmup", ["warmup", "--json"], WARMUP_TIMEOUT_S, env)
+    report = json.loads(out.strip().splitlines()[-1])
+    for step in report["steps"]:
+        print(f"shell: warmup step {step['name']}: ok {step['ok']}, {step['wall_s']} s [{smi}]")
+    print(f"shell: warmup (fresh process, default durations): total_s {report['total_s']}, "
+          f"{wall:.3f} s from start to exit [{smi}]")
+    names = [s["name"] for s in report["steps"]]
+    want_names = ([f"build_{n}.cu" for n in sorted(KERNEL_SOURCES)] + ["kernel_library_check"]
+                  + [f"v2.2_mdd_{d}s" for d in (15, 75, 120, 180, 240)]
+                  + ["vocal_separation", "vpbd_asr"])
+    if names != want_names or not all(s["ok"] for s in report["steps"]):
+        fail(f"shell: warmup steps {report['steps']}; expected {want_names}, every one ok")
+    rebuilt = [s for s in report["steps"] if s["name"].startswith("build_") and s["wall_s"] != 0.0]
+    if rebuilt:
+        fail(f"shell: warmup rebuilt {rebuilt}: the libraries this run built were not found")
+
+    out, wall = _shell_subprocess("shell: first track",
+                                  [str(song), "-o", str(work / "first"), "--json"],
+                                  FIRST_TRACK_TIMEOUT_S, env)
+    m = _manifest_of(out)
+    check_segments(m, work / "first", audio)
+    same = m["cuts"]["samples"] == list(warm_m["cuts"]["samples"])
+    print(f"shell: first track (fresh process, kernels built): {wall:.3f} s from start to exit, "
+          f"of which the split itself {m['timings_ms']['total']} ms (the manifest's "
+          f"timings_ms.total); {m['gpu']['gpu_pipeline_mode']}, {len(m['segments'])} segments, "
+          f"cuts (samples) "
+          f"{m['cuts']['samples']}, spliced back exactly; cuts equal to the warm API call's: "
+          f"{same} [{smi}]")
+
+    # quick_start on a directory holding the song with the loud section
+    qdir = work / "qs_input"
+    qdir.mkdir()
+    shutil.copy(work / "song_chorus.wav", qdir / "song_chorus.wav")
+    answers = iter(QUICK_START_ANSWERS)
+    ask = builtins.input
+    builtins.input = lambda *_a: next(answers)
+    kernels = reset_counts()  # quick_start: only its launches count
+    try:
+        t0 = time.perf_counter()
+        rc = quick_start.run_interactive(str(qdir), output_dir=str(work / "qs_out"))
+        wall = time.perf_counter() - t0
+    finally:
+        builtins.input = ask
+    launches = {name: k.launches for name, k in kernels.items()}
+    out = work / "qs_out" / "song_chorus"
+    print(f"shell: quick_start {QUICK_START_ANSWERS}: rc {rc}, {wall:.3f} s wall, launches "
+          f"{launches} [{smi}]")
+    if rc != 0:
+        fail(f"shell: quick_start gave rc {rc}")
+    m = json.loads((out / "SegmentManifest.json").read_text(encoding="utf-8"))
+    if m["version"] != "vpbd_asr" or (m.get("intent") or {}).get("segments") != "medium":
+        fail(f"shell: quick_start ran {m['version']} with intent {m.get('intent')}; expected "
+             "vpbd_asr with segments 'medium'")
+    check_pass("shell: quick_start", m, launches["K1"], launches["K2"])
+    check_vpbd(m, out, read_wav(work / "song_chorus.wav")[0], "shell: quick_start")
+    print(f"shell: quick_start: {len(m['segments'])} segments, cuts (samples) "
+          f"{m['cuts']['samples']}, note {m.get('note')}; spliced back exactly")
 
 
 def _merged(intervals) -> list:
@@ -3469,6 +3657,7 @@ def main() -> int:
         one_window_parity(torch, dev, audio)
         shifts_k1 = run_shifts(torch, dev, work, audio, base_vocal)
         batch_launches = run_batch(torch, dev, work, audio)
+        run_shell(torch, dev, work, audio, warm_m, batch_launches)
         profile_call(torch, work)
         profile_call(torch, work, mode="vpbd_acoustic", song="song_chorus.wav")
         train_launches, report, ckpt = run_training(torch, dev, work)

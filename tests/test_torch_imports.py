@@ -13,6 +13,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "audio_cut_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "msgpack", "audio_cut_tpu")
+SHELL = ("cli", "warmup", "quick_start", "config/migrate")
 
 
 def _port_files():
@@ -47,6 +48,8 @@ def test_port_sources_import_nothing_forbidden():
     assert PORT / "ops/voice.py" in files
     # and the WaveUNet tier with its trainer
     assert {PORT / "models/waveunet.py", PORT / "training/wave_trainer.py"} <= set(files)
+    # and the shell
+    assert {PORT / f"{m}.py" for m in SHELL} <= set(files)
     bad = [(p.relative_to(REPO).as_posix(), m) for p in files for m in _imported_roots(p)
            if _forbidden(m)]
     assert bad == []
@@ -60,6 +63,8 @@ def test_import_leaves_forbidden_modules_unloaded():
         "assert 'audio_cut_tpu_torch.ops.voice' in names\n"
         "assert {'audio_cut_tpu_torch.models.waveunet', "
         "'audio_cut_tpu_torch.training.wave_trainer'} <= set(names)\n"
+        f"assert {set('audio_cut_tpu_torch.' + m.replace('/', '.') for m in SHELL)!r} "
+        "<= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -69,6 +74,15 @@ def test_import_leaves_forbidden_modules_unloaded():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("verb", [[], ["warmup"]], ids=["cli", "warmup"])
+def test_shell_help_runs_without_input(verb):
+    out = subprocess.run([sys.executable, "-m", "audio_cut_tpu_torch.cli", *verb, "--help"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage: python -m audio_cut_tpu_torch.cli")
+    assert ("--durations" if verb else "--compat-config") in out.stdout
 
 
 def test_entry_point_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
